@@ -2,9 +2,8 @@
 
 PYTHON ?= python
 
-.PHONY: test test-fast bench bench-quick bench-vaf bench-check \
-	bench-solvers bench-fit bench-e2e bench-export bench-all lint doctest \
-	check docs-exec entry native dist clean
+.PHONY: test test-fast bench bench-quick bench-vaf bench-check smoke \
+	smoke-4 lint doctest check docs-exec entry native dist clean
 
 test:
 	$(PYTHON) -m pytest tests/ -q
@@ -21,7 +20,8 @@ doctest:  # run every docstring example (the reference's --doctest-modules gate)
 
 check: lint  # full static gate: lint + bytecode-compile + optional mypy/pylint
 	$(PYTHON) -m compileall -q muscle_synergies_tpu muscle_synergies \
-		tests scripts benchmarks examples bench.py __graft_entry__.py
+		tests scripts benchmarks examples bench.py chip_smoke.py \
+		__graft_entry__.py
 	@command -v mypy >/dev/null 2>&1 \
 		&& mypy --ignore-missing-imports muscle_synergies_tpu \
 		|| echo "mypy not installed; skipped"
@@ -30,9 +30,8 @@ docs-exec:  # executable documentation: example script + tutorial notebook
 	JAX_PLATFORMS=cpu XLA_FLAGS="--xla_force_host_platform_device_count=8" \
 		$(PYTHON) examples/full_workflow.py --platform cpu
 	$(PYTHON) scripts/gen_tutorial_nb.py  # notebook follows tutorial.md
-	JAX_PLATFORMS=cpu TUTORIAL_FORCE_PLATFORM=cpu \
-		XLA_FLAGS="--xla_force_host_platform_device_count=8" \
-		$(PYTHON) scripts/exec_tutorial.py
+	XLA_FLAGS="--xla_force_host_platform_device_count=8" \
+		$(PYTHON) scripts/exec_tutorial.py --platform cpu
 
 bench:
 	$(PYTHON) bench.py
@@ -40,41 +39,17 @@ bench:
 bench-quick:
 	$(PYTHON) bench.py --quick
 
-bench-vaf:  # BASELINE.md's second metric: time-to-90%-VAF
-	$(PYTHON) bench.py --metric vaf --rank 2 | tee BENCH_VAF.json
+bench-vaf:  # time-to-90%-VAF on the calibrated gait batch
+	$(PYTHON) bench.py --metric vaf --rank 2
 
-bench-check:  # on-device Pallas kernel numerics vs float64 references
-	$(PYTHON) bench.py --check | tee BENCH_CHECK.json
+bench-check:  # the device's solver numerics vs float64 references
+	$(PYTHON) bench.py --check
 
-bench-solvers:  # per-solver throughput rows (mu, cd, kl, is, cnmf, nm3f) -> artifact
-	$(PYTHON) bench.py --solver mu > BENCH_SOLVERS.json
-	$(PYTHON) bench.py --solver cd >> BENCH_SOLVERS.json
-	$(PYTHON) bench.py --solver kl >> BENCH_SOLVERS.json
-	$(PYTHON) bench.py --solver is >> BENCH_SOLVERS.json
-	$(PYTHON) bench.py --solver cnmf >> BENCH_SOLVERS.json
-	$(PYTHON) bench.py --solver nm3f >> BENCH_SOLVERS.json
-	cat BENCH_SOLVERS.json
+smoke:  # the dataset path on one GPU, every phase checked
+	$(PYTHON) chip_smoke.py
 
-bench-fit:  # full convergence-fit wall time per solver -> artifact
-	$(PYTHON) bench.py --metric fit --solver mu > BENCH_FIT.json
-	$(PYTHON) bench.py --metric fit --solver cd >> BENCH_FIT.json
-	$(PYTHON) bench.py --metric fit --solver kl >> BENCH_FIT.json
-	$(PYTHON) bench.py --metric fit --solver is >> BENCH_FIT.json
-	$(PYTHON) bench.py --metric fit --solver cnmf >> BENCH_FIT.json
-	$(PYTHON) bench.py --metric fit --solver nm3f >> BENCH_FIT.json
-	cat BENCH_FIT.json
-
-bench-e2e:  # head-to-head full workflow vs the reference impl (same core)
-	$(PYTHON) benchmarks/end_to_end.py --platform cpu | tee BENCH_E2E.json
-	$(PYTHON) benchmarks/end_to_end.py --platform cpu --dataset 6 \
-		| tee -a BENCH_E2E.json
-	$(PYTHON) benchmarks/end_to_end.py --dataset 6 --frames 6000 \
-		--chunk-files 3 --skip-reference | tee -a BENCH_E2E.json
-
-bench-export:  # chip-validate the StableHLO serving path -> artifact
-	$(PYTHON) scripts/validate_export_tpu.py | tee BENCH_EXPORT.json
-
-bench-all: bench-check bench-vaf bench-solvers bench-fit bench-e2e bench-export  # refresh artifacts
+smoke-4:  # the sharded dataset path on four GPUs
+	$(PYTHON) chip_smoke.py --chips 4
 
 entry:
 	JAX_PLATFORMS=cpu XLA_FLAGS="--xla_force_host_platform_device_count=8" \

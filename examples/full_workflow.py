@@ -18,12 +18,15 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--platform", default=None)
     args = parser.parse_args()
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
     import muscle_synergies_tpu as mst
+    from muscle_synergies_tpu.utils.platform import enable_compile_cache
+
+    enable_compile_cache()
     from benchmarks.end_to_end import synthesize_csv
 
     # --- 1. ingest -------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Code written against the reference package
 (reference src/muscle_synergies/__init__.py exports these exact names)
-keeps working unchanged on top of the TPU-native framework:
+keeps working unchanged on top of the accelerated framework:
 
     from muscle_synergies import load_vicon_file, find_synergies
 

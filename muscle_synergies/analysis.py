@@ -7,7 +7,7 @@ __init__.py:5), so reference-era code does either of::
     from muscle_synergies.analysis import find_synergies
     import muscle_synergies.analysis as analysis
 
-Both must resolve here too.  Every name re-exports the TPU-native
+Both must resolve here too.  Every name re-exports the accelerated
 implementation (:mod:`muscle_synergies_tpu.analysis` et al.); the
 signatures and defaults are the reference's.
 """

@@ -4,7 +4,7 @@ Reference-era scripts import the L0 type vocabulary from here
 (reference src/muscle_synergies/vicon_data/definitions.py:18-199):
 ``Row``, ``SectionType``, ``ViconCSVLines``, ``DeviceType``,
 ``ForcePlateMeasurement``, ``SamplingFreq``.  All names resolve to the
-TPU framework's implementations, which keep the same enum members,
+accelerated framework's implementations, which keep the same enum members,
 ``DeviceType.from_str`` strings, ``DeviceType.section_type`` mapping
 and the ``SamplingFreq.num_subframes`` integer-ratio rule.
 """

@@ -6,7 +6,7 @@ The reference wires a push parser out of three collaborators —
 ``Reader`` is fed one CSV row at a time and a ``Builder`` turns the
 accumulated state into a :class:`ViconNexusData`.
 
-The TPU framework ingests through one bulk decode instead (see
+The accelerated framework ingests through one bulk decode instead (see
 ``muscle_synergies_tpu.io.vicon``), so these factories return thin
 push-style adapters over the same shared row store: ``Reader.feed_row``
 appends rows, ``Builder.build`` hands them to the bulk parser.  The
@@ -206,7 +206,7 @@ def create_reader(
     if initial_state is not None:
         raise ValueError(
             "custom reader states are a reference-internal extension "
-            "point; the TPU ingest has no per-line state machine"
+            "point; the bulk ingest has no per-line state machine"
         )
     return Reader(aggregator=aggregator)
 

@@ -1,10 +1,10 @@
-"""muscle_synergies_tpu: a TPU-native muscle-synergy analysis framework.
+"""muscle_synergies_tpu: an accelerated muscle-synergy analysis framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the
 reference ``muscle_synergies`` package (Vicon Nexus CSV ingest, EMG
-preprocessing, NMF-based synergy extraction) re-designed TPU-first:
-batched/sharded array pipelines, fused NMF solvers, and mesh-parallel
-execution.
+preprocessing, NMF-based synergy extraction) re-designed for the
+accelerator: batched/sharded array pipelines, fused NMF solvers (Triton
+kernels on the GPU), and mesh-parallel execution.
 """
 
 from . import analysis, dataset, models, ops, parallel, segment, utils

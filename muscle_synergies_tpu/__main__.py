@@ -14,8 +14,8 @@ module exposes the two everyday operations:
     write a JSON report (per-rank overall + per-muscle VAF, solver
     telemetry, optional components).
 
-Both run on whatever JAX backend is active (TPU in production, CPU
-elsewhere); ``--platform cpu`` forces the CPU backend before any
+Both run on whatever JAX backend is active (a GPU in production, the
+CPU elsewhere); ``--platform cpu`` forces the CPU backend before any
 device query.
 """
 
@@ -78,7 +78,7 @@ def _parse_modules(spec: str):
 def _build_parser():
     parser = argparse.ArgumentParser(
         prog="python -m muscle_synergies_tpu",
-        description="TPU-native muscle-synergy analysis",
+        description="accelerated muscle-synergy analysis",
     )
     parser.add_argument(
         "--platform", default=None,
@@ -140,15 +140,14 @@ def _build_parser():
     )
     p_an.add_argument(
         "--impl", choices=["auto", "xla", "pallas"], default="auto",
-        help="--time-varying solver implementation (default auto: the "
-             "fused VMEM kernel on TPU)",
+        help="--time-varying solver implementation (no hand-written "
+             "kernel: auto and xla both run the batched XLA fit)",
     )
     p_an.add_argument(
         "--precision", choices=["default", "highest"], default="default",
-        help="matmul precision of the --time-varying XLA contractions "
-             "('highest' = multi-pass f32 on the TPU MXU, recovering "
-             "float32-level accuracy from the bf16 default; ignored by "
-             "the Pallas kernel, which is already pure f32)",
+        help="matmul precision of the --time-varying contractions "
+             "('highest' = full float32 products; the default lets the "
+             "platform round float32 products through TF32 or bf16)",
     )
     p_an.add_argument(
         "--rms", type=float, metavar="SECONDS", default=None,
@@ -225,16 +224,16 @@ def _build_parser():
     p_ds.add_argument("--reduce-to", type=int, default=200)
     p_ds.add_argument(
         "--impl", choices=["auto", "xla", "pallas"], default="auto",
-        help="batched-solver implementation (default auto: fused "
-             "kernels on TPU)",
+        help="batched-solver implementation (default auto: the fused "
+             "Triton kernels on a GPU, XLA elsewhere)",
     )
     p_ds.add_argument(
         "--precision", choices=["default", "highest"], default="default",
         help="matmul precision for the --time-varying/--space-by-time/"
              "--temporal-modules/--spatial-modules models' XLA "
-             "contractions ('highest' = multi-pass f32 on the TPU MXU; "
-             "the plain rank sweep runs the pure-f32 Pallas solvers and "
-             "rejects this flag)",
+             "contractions ('highest' = full float32 products; the "
+             "plain rank sweep always runs full float32 and rejects "
+             "this flag)",
     )
     p_ds.add_argument(
         "--vaf-threshold", type=float, default=0.90,
@@ -320,8 +319,8 @@ def _build_parser():
         help="input dtype baked into the artifact (default float32)",
     )
     p_ex.add_argument(
-        "--platforms", default="cpu,tpu",
-        help="comma-separated lowering targets (default cpu,tpu)",
+        "--platforms", default="cpu,cuda",
+        help="comma-separated lowering targets (default cpu,cuda)",
     )
     p_ex.add_argument(
         "--rank", type=int, default=None,
@@ -789,7 +788,7 @@ def _cmd_analyze_dataset(args) -> int:
                     f"{path}: EMG sampling rate "
                     f"{cap.emg.sampling_frequency} != {fs} of {args.csvs[0]}"
                 )
-        trials = [cap.emg.df for cap in captures]
+        trials = [cap.emg for cap in captures]
 
     shared_model = (
         args.space_by_time is not None
@@ -840,8 +839,8 @@ def _cmd_analyze_dataset(args) -> int:
     ):
         raise SystemExit(
             "--precision applies to the convolutive/shared-factor "
-            "models' XLA contractions; the rank sweep runs the "
-            "pure-f32 Pallas solvers — drop it"
+            "models' XLA contractions; the rank sweep always runs "
+            "full float32 — drop it"
         )
     if args.time_varying is not None:
         return _analyze_dataset_time_varying(
@@ -1063,7 +1062,7 @@ def _analyze_dataset_shared_factor(args, trials, fs, config, subjects) -> int:
     }
     if subjects:
         report["subjects"] = subjects
-    names = [str(c) for c in trials[0].columns]
+    names = [str(c) for c in trials[0].coords]  # the EMG channel labels
     if temporal:
         report["temporal_modules"] = (
             res.temporal_modules.to_numpy().tolist()
@@ -1151,10 +1150,13 @@ def _analyze_dataset_time_varying(args, trials, fs, config, subjects) -> int:
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    if args.platform:
-        import jax
+    import jax
 
+    from muscle_synergies_tpu.utils.platform import enable_compile_cache
+
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    enable_compile_cache()
     if args.command == "describe":
         return _cmd_describe(args)
     if args.command == "analyze-dataset":

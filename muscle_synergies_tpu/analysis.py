@@ -4,20 +4,23 @@ Every function here keeps the reference's signature and DataFrame
 semantics (one 1-D signal per column, optional ``inplace``; reference:
 src/muscle_synergies/analysis.py) while the numerics run through the
 JAX array core in :mod:`muscle_synergies_tpu.ops` — so the same calls
-users make on a laptop drive fused XLA computations on TPU.
+users make on a laptop drive fused XLA computations on the accelerator.
 
-Precision note: computations inherit JAX's active float width.  With
-``jax_enable_x64`` the results match scipy/sklearn at float64; by
-default on TPU they run in float32, which is the intended production
-regime.
+Precision note: computations inherit JAX's active float width, except
+the IIR filters (:func:`digital_filter`, :func:`linear_envelope`),
+which always run in float64: composing a low cutoff's near-unit poles
+over a long capture through the associative scan loses tens of percent
+of relative accuracy in float32.  With ``jax_enable_x64`` every result
+matches scipy/sklearn at float64.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Union
 
+import jax
 import numpy as np
-import pandas
+from ._optional import pandas
 
 from .ops import emg as _emg
 
@@ -79,8 +82,9 @@ def digital_filter(
     """
     if filter_type not in {"butter", "cheby1", "cheby2"}:
         raise ValueError("filter type not understood.")
-    arr = _emg.digital_filter(
-        signal_df.to_numpy(),
+    with jax.enable_x64(True):
+        arr = _emg.digital_filter(
+            signal_df.to_numpy(),
         critical_freqs=critical_freqs,
         sampling_frequency=sampling_frequency,
         order=order,
@@ -88,8 +92,8 @@ def digital_filter(
         band_type=band_type,
         zero_lag=zero_lag,
         cheby_param=cheby_param,
-        padtype=padtype,
-    )
+            padtype=padtype,
+        )
     return _recreate_signal(signal_df, inplace, arr)
 
 
@@ -105,16 +109,17 @@ def linear_envelope(
     inplace: bool = False,
 ) -> pandas.DataFrame:
     """Linear envelope: (zero-center) -> rectify -> low-pass filter."""
-    arr = _emg.linear_envelope(
-        signal_df.to_numpy(),
-        critical_freqs=critical_freqs,
-        sampling_frequency=sampling_frequency,
-        order=order,
-        filter_type=filter_type,
-        zero_lag=zero_lag,
-        cheby_param=cheby_param,
-        zero_center_=zero_center_,
-    )
+    with jax.enable_x64(True):
+        arr = _emg.linear_envelope(
+            signal_df.to_numpy(),
+            critical_freqs=critical_freqs,
+            sampling_frequency=sampling_frequency,
+            order=order,
+            filter_type=filter_type,
+            zero_lag=zero_lag,
+            cheby_param=cheby_param,
+            zero_center_=zero_center_,
+        )
     return _recreate_signal(signal_df, inplace, arr)
 
 

@@ -18,7 +18,7 @@ from enum import Enum
 from typing import Optional, Sequence, Union
 
 import numpy as np
-import pandas as pd
+from ._optional import pandas as pd
 
 from .frames import FrameSubfr, FrameTracker, SamplingFreq
 
@@ -126,7 +126,7 @@ class DeviceData:
             self._array = np.asarray(array, dtype=float)
             self.coords = tuple(coords)
 
-    # -- array-first access (TPU pipeline) --------------------------------
+    # -- array-first access (device pipeline) -----------------------------
     @property
     def array(self) -> np.ndarray:
         """Dense ``(num_samples, num_cols)`` float64 measurement block."""
@@ -216,7 +216,7 @@ class ViconNexusData:
             return self.traj
         raise KeyError(f"device type not understood: {device_type}")
 
-    # -- array-first access (TPU pipeline) --------------------------------
+    # -- array-first access (device pipeline) -----------------------------
     def emg_array(self) -> np.ndarray:
         """``(num_samples, num_muscles)`` EMG block."""
         return self.emg.array

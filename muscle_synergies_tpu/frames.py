@@ -13,7 +13,7 @@ Capability parity with the reference implementation:
 
 Unlike the reference (scalar Python arithmetic), the conversion methods
 here also accept numpy arrays so whole index vectors convert at once,
-which is what the batched TPU pipeline uses to align streams.
+which is what the batched device pipeline uses to align streams.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import numpy as np
-import pandas as pd
+from ._optional import pandas as pd
 
 FrameSubfr = Tuple[int, int]
 """Time expressed as a ``(frame, subframe)`` pair."""

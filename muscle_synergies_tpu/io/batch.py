@@ -58,7 +58,7 @@ def stack_trials(
         trials: ``(N_i, L)`` arrays sharing the channel count.
         pad_to: pad every trial to this length (defaults to the max).
         sharding: optional ``jax.sharding.Sharding`` for the batch.
-        dtype: cast target (e.g. ``jnp.float32`` for TPU runs).
+        dtype: cast target (e.g. ``jnp.float32`` for accelerator runs).
     """
     if names is not None and len(names) != len(trials):
         raise ValueError(f"got {len(names)} names for {len(trials)} trials")

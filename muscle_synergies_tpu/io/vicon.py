@@ -43,7 +43,6 @@ from enum import Enum
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import pandas as pd
 
 from ..data import DeviceData, DeviceType, ViconNexusData
 from ..frames import ForcesEMGFrameTracker, SamplingFreq, TrajFrameTracker
@@ -253,6 +252,13 @@ def _decode_data_block(
         if arr is not None:
             return arr
 
+    try:
+        import pandas as pd
+    except ImportError as exc:
+        raise ImportError(
+            "decoding a Vicon CSV needs the native decoder (built with "
+            "g++ on first use) or pandas, and neither is available"
+        ) from exc
     try:
         frame = pd.read_csv(
             io.BytesIO(data),

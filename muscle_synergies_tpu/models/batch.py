@@ -29,9 +29,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils.platform import resolve_impl
 from .hals import CDState, fit_cd
 from .init import initialize_nmf
-from .mu import MUState, fit_mu
+from .mu import MUState, fit_mu, full_precision
 
 __all__ = [
     "pad_and_stack",
@@ -44,11 +45,6 @@ __all__ = [
     "rank_sweep_batch",
     "vaf_batch",
 ]
-
-
-def _default_block_b(b: int) -> int:
-    """Largest divisor of the batch size up to the 128-lane width."""
-    return next(d for d in range(min(128, b), 0, -1) if b % d == 0)
 
 
 def pad_and_stack(
@@ -95,14 +91,15 @@ def init_batch(
     return w, h
 
 
+@full_precision
 def mu_update_batch(
     xs: jnp.ndarray, w: jnp.ndarray, h: jnp.ndarray, inner_iter: int = 1
 ):
     """One MU iteration over a ``(B, N, L)`` batch (batched matmuls).
 
     The per-trial matmuls contract over N or L with the batch as the
-    leading batching dimension, so XLA lowers them onto the MXU as
-    batched GEMMs and fuses the element-wise multiply/divide chain.
+    leading batching dimension, so XLA lowers them as batched GEMMs and
+    fuses the element-wise multiply/divide chain.
     ``inner_iter > 1`` repeats each factor's update reusing the fixed
     factor's cross products, matching
     :func:`muscle_synergies_tpu.models.mu.mu_update` exactly.
@@ -147,8 +144,8 @@ def mu_iterations_batch(
     h: jnp.ndarray,
     n_iters: int,
     impl: str = "xla",
-    block_b: Optional[int] = None,
     inner_iter: int = 1,
+    interpret: bool = False,
 ):
     """Run ``n_iters`` fused MU iterations (no convergence checks).
 
@@ -157,22 +154,20 @@ def mu_iterations_batch(
     dispatch overhead.
 
     Args:
-        impl: ``"xla"`` (batched GEMMs, any batch size) or ``"pallas"``
-            (the VMEM-resident lane-packed kernel, ~2x on TPU — see
-            :mod:`muscle_synergies_tpu.models.kernels`).
-        block_b: trials per kernel block for the Pallas path; defaults
-            to the largest divisor of the batch size up to 128.
+        impl: ``"xla"`` (batched GEMMs), ``"pallas"`` (the Triton
+            kernel, :mod:`muscle_synergies_tpu.models.kernels`) or
+            ``"auto"``; see
+            :func:`muscle_synergies_tpu.utils.platform.resolve_impl`.
+        interpret: run the kernel in Pallas' interpreter (tests only).
     """
-    if impl == "pallas":
+    if resolve_impl(
+        impl, "mu", rank=w.shape[-1], interpret=interpret
+    ) == "pallas":
         from .kernels import mu_iterations_pallas
 
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
         return mu_iterations_pallas(
-            xs, w, h, n_iters, block_b=block_b, inner_iter=inner_iter
+            xs, w, h, n_iters, inner_iter=inner_iter, interpret=interpret
         )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _mu_iterations_xla(xs, w, h, n_iters, inner_iter=inner_iter)
 
 
@@ -202,39 +197,35 @@ def fit_mu_batch(
     tol: float = 1e-4,
     check_every: int = 10,
     impl: str = "xla",
-    block_b: Optional[int] = None,
     inner_iter: int = 1,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    interpret: bool = False,
 ) -> MUState:
     """MU-NMF over a ``(B, N, L)`` batch with per-trial convergence.
 
-    ``impl="pallas"`` routes through the VMEM-resident fused solver
-    (:func:`muscle_synergies_tpu.models.kernels.fit_mu_pallas`) —
-    same stopping semantics, pure-f32 arithmetic.  The L1/L2 penalties
-    (sklearn's pre-scaled regularizers) run on the XLA path only.
+    ``impl="pallas"`` routes through the fused Triton solver
+    (:func:`muscle_synergies_tpu.models.kernels.fit_mu_pallas`): same
+    stopping semantics, the whole solve in one launch.  The L1/L2
+    penalties (sklearn's pre-scaled regularizers) run on the XLA path
+    only.
     """
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
-    if impl == "pallas":
-        if any(r != 0.0 for r in regs):
-            raise ValueError(
-                "L1/L2 regularization is not supported by impl='pallas'; "
-                "use impl='xla'"
-            )
+    penalized = any(r != 0.0 for r in regs)
+    if resolve_impl(
+        impl, "mu", rank=w0.shape[-1], penalized=penalized,
+        interpret=interpret,
+    ) == "pallas":
         from .kernels import fit_mu_pallas
 
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
         w, h, n_iter, prev_err, converged = fit_mu_pallas(
             xs, w0, h0, max_iter=max_iter, tol=tol,
-            check_every=check_every, block_b=block_b,
-            inner_iter=inner_iter,
+            check_every=check_every, inner_iter=inner_iter,
+            interpret=interpret,
         )
         return MUState(w, h, n_iter, prev_err, converged)
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _fit_mu_batch_xla(
         xs, w0, h0, max_iter, tol, check_every, inner_iter, *regs
     )
@@ -249,11 +240,11 @@ def fit_mu_beta_batch(
     tol: float = 1e-4,
     check_every: int = 10,
     impl: str = "xla",
-    block_b: Optional[int] = None,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    interpret: bool = False,
 ):
     """Beta-divergence MU over a ``(B, N, L)`` batch.
 
@@ -262,25 +253,21 @@ def fit_mu_beta_batch(
     ``while_loop`` freezes converged trials (vmap keeps each element's
     old carry once its own cond is false), so per-trial stopping
     matches the unbatched solver exactly.  ``impl="pallas"`` (any
-    float ``beta``) drives the VMEM-resident
+    float ``beta``) drives the Triton
     :func:`muscle_synergies_tpu.models.kernels.beta_mu_iterations_pallas`
     in ``check_every``-iteration chunks with the same per-trial
-    stopping semantics — ~2.6x the XLA path on a v5e for KL.
+    stopping semantics.
     """
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
-    if impl == "pallas":
-        if any(r != 0.0 for r in regs):
-            raise ValueError(
-                "L1/L2 regularization is not supported by impl='pallas'; "
-                "use impl='xla'"
-            )
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
+    penalized = any(r != 0.0 for r in regs)
+    if resolve_impl(
+        impl, "beta", rank=w0.shape[-1], penalized=penalized,
+        interpret=interpret,
+    ) == "pallas":
         return _fit_beta_batch_pallas(
-            xs, w0, h0, beta, max_iter, float(tol), check_every, block_b
+            xs, w0, h0, float(beta), max_iter, float(tol), check_every,
+            interpret=interpret,
         )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     from .beta import fit_mu_beta
 
     return jax.vmap(
@@ -295,11 +282,11 @@ def fit_mu_beta_batch(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "beta", "max_iter", "tol", "check_every", "block_b", "interpret",
+        "beta", "max_iter", "tol", "check_every", "interpret",
     ),
 )
 def _fit_beta_batch_pallas(
-    xs, w0, h0, beta, max_iter, tol, check_every, block_b, interpret=False
+    xs, w0, h0, beta, max_iter, tol, check_every, interpret=False
 ):
     """Beta fit driven by the Pallas kernel in convergence-checked chunks.
 
@@ -310,13 +297,11 @@ def _fit_beta_batch_pallas(
     chunk covers ``max_iter % check_every`` without a check.
 
     The stopping statistic is computed at
-    ``jax.lax.Precision.HIGHEST``: the kernel's updates are f32-exact
-    (VPU), but the XLA divergence's default TPU matmul rounds through
-    bf16 MXU passes — enough noise in the KL log terms to stop the fit
-    ~160 checkpoints away from the float64 host fit (chip-measured
-    2026-08-19, fitkl err 6.0e-1/gap160 before vs the gated post-fix
-    numbers in BENCH_CHECK.json).  The (N, k) @ (k, L) check matmul is
-    negligible next to ``check_every`` kernel iterations.
+    ``jax.lax.Precision.HIGHEST``, like the XLA fit's: a default-
+    precision matmul may round through reduced-precision passes, and
+    noise in the KL log terms moves the stopping checkpoint.  The
+    (N, k) @ (k, L) check matmul is negligible next to ``check_every``
+    kernel iterations.
     """
     from .beta import BetaState, beta_divergence
     from .kernels import beta_mu_iterations_pallas
@@ -332,7 +317,7 @@ def _fit_beta_batch_pallas(
 
     def chunk(state):
         w_new, h_new = beta_mu_iterations_pallas(
-            xs, state.w, state.h, check_every, beta=beta, block_b=block_b,
+            xs, state.w, state.h, check_every, beta=beta,
             interpret=interpret,
         )
         keep = state.converged[:, None, None]
@@ -365,8 +350,7 @@ def _fit_beta_batch_pallas(
 
     if tail:
         w_new, h_new = beta_mu_iterations_pallas(
-            xs, state.w, state.h, tail, beta=beta, block_b=block_b,
-            interpret=interpret,
+            xs, state.w, state.h, tail, beta=beta, interpret=interpret,
         )
         keep = state.converged[:, None, None]
         w = jnp.where(keep, state.w, w_new)
@@ -408,7 +392,7 @@ def cd_iterations_batch(
     h: jnp.ndarray,
     n_iters: int,
     impl: str = "xla",
-    block_b: Optional[int] = None,
+    interpret: bool = False,
 ):
     """Run ``n_iters`` CD/HALS outer iterations (no convergence checks).
 
@@ -419,14 +403,12 @@ def cd_iterations_batch(
     (:func:`muscle_synergies_tpu.models.hals.cd_pass`), so iterates
     match :func:`fit_cd_batch`'s up to float reordering.
     """
-    if impl == "pallas":
+    if resolve_impl(
+        impl, "cd", rank=w.shape[-1], interpret=interpret
+    ) == "pallas":
         from .kernels import cd_iterations_pallas
 
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
-        return cd_iterations_pallas(xs, w, h, n_iters, block_b=block_b)
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
+        return cd_iterations_pallas(xs, w, h, n_iters, interpret=interpret)
     return _cd_iterations_xla(xs, w, h, n_iters)
 
 
@@ -449,7 +431,7 @@ def beta_mu_iterations_batch(
     n_iters: int,
     beta: float = 1.0,
     impl: str = "xla",
-    block_b: Optional[int] = None,
+    interpret: bool = False,
 ):
     """Run ``n_iters`` beta-MU iterations (no convergence checks).
 
@@ -457,16 +439,14 @@ def beta_mu_iterations_batch(
     the fixed-iteration throughput primitive behind ``bench.py
     --solver {kl,is}`` and any float ``beta``.
     """
-    if impl == "pallas":
+    if resolve_impl(
+        impl, "beta", rank=w.shape[-1], interpret=interpret
+    ) == "pallas":
         from .kernels import beta_mu_iterations_pallas
 
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
         return beta_mu_iterations_pallas(
-            xs, w, h, n_iters, beta=beta, block_b=block_b
+            xs, w, h, n_iters, beta=beta, interpret=interpret
         )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _beta_iterations_xla(xs, w, h, n_iters, beta)
 
 
@@ -494,38 +474,33 @@ def fit_cd_batch(
     max_iter: int = 200,
     tol: float = 1e-4,
     impl: str = "xla",
-    block_b: Optional[int] = None,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    interpret: bool = False,
 ) -> CDState:
     """Coordinate-descent NMF over a ``(B, N, L)`` batch.
 
-    ``impl="pallas"`` routes through the VMEM-resident fused solver
-    (:func:`muscle_synergies_tpu.models.kernels.fit_cd_pallas`) —
+    ``impl="pallas"`` routes through the fused Triton solver
+    (:func:`muscle_synergies_tpu.models.kernels.fit_cd_pallas`):
     sklearn's violation-based stopping per trial, the whole solve one
-    kernel dispatch.  The L1/L2 penalties run on the XLA path only.
+    launch.  The L1/L2 penalties run on the XLA path only.
     """
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
-    if impl == "pallas":
-        if any(r != 0.0 for r in regs):
-            raise ValueError(
-                "L1/L2 regularization is not supported by impl='pallas'; "
-                "use impl='xla'"
-            )
+    penalized = any(r != 0.0 for r in regs)
+    if resolve_impl(
+        impl, "cd", rank=w0.shape[-1], penalized=penalized,
+        interpret=interpret,
+    ) == "pallas":
         from .kernels import fit_cd_pallas
 
-        if block_b is None:
-            block_b = _default_block_b(xs.shape[0])
         w, h, n_iter, viol_init, converged = fit_cd_pallas(
-            xs, w0, h0, max_iter=max_iter, tol=tol, block_b=block_b
+            xs, w0, h0, max_iter=max_iter, tol=tol, interpret=interpret
         )
         return CDState(
             w, jnp.swapaxes(h, -1, -2), n_iter, viol_init, converged
         )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _fit_cd_batch_xla(xs, w0, h0, max_iter, tol, *regs)
 
 
@@ -617,11 +592,13 @@ def rank_sweep_batch(
     return states, vafs
 
 
+@full_precision
 def _vaf_overall(x, w, h):
     err = x - w @ h
     return 1.0 - jnp.sum(err * err) / jnp.sum(x * x)
 
 
+@full_precision
 def vaf_batch(xs: jnp.ndarray, ws: jnp.ndarray, hs: jnp.ndarray):
     """Overall and per-channel VAF for a batch of factorizations.
 

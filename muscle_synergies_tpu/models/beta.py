@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .mu import EPSILON
+from .mu import EPSILON, full_precision
 
 # sklearn's stability-flush threshold (np.finfo(np.float64).eps)
 F64_EPS = float(np.finfo(np.float64).eps)
@@ -86,9 +86,9 @@ def beta_divergence(
 
     Args:
         precision: matmul precision for the ``W @ H`` reconstruction.
-            On TPU the default rounds through bf16 MXU passes, which is
+            A reduced-precision default product (TF32 on a GPU) is
             enough noise in the log terms to flip relative-improvement
-            stopping decisions; convergence checks should pass
+            stopping decisions; convergence checks pass
             ``jax.lax.Precision.HIGHEST``.
     """
     if beta == 2.0:
@@ -135,6 +135,7 @@ def _wh_pow_times_x(x, wh, beta: float):
     return x * wh ** (beta - 2.0)
 
 
+@full_precision
 def mu_update_beta(
     x,
     w,

@@ -16,7 +16,7 @@ as a fused JAX loop:
 
 - the reconstruction and both update numerators/denominators are
   lag-stacked einsums — ``(D·T, K) @ (K, L)``-shaped contractions that
-  XLA tiles straight onto the MXU (no scalar time loops);
+  XLA tiles as batched matrix products (no scalar time loops);
 - the whole fit is one ``lax.while_loop`` with sklearn-style stopping
   (relative Frobenius improvement every ``check_every`` iterations,
   ``EPSILON``-guarded denominators), so a fit is a single device
@@ -38,13 +38,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .mu import EPSILON
+from ..utils.platform import resolve_impl
+from .mu import EPSILON, full_precision
 
 __all__ = [
     "CNMFModel",
     "CNMFState",
     "TimeVaryingSynergyResult",
-    "cnmf_block_b",
     "cnmf_reconstruct",
     "cnmf_transform",
     "cnmf_update",
@@ -54,7 +54,6 @@ __all__ = [
     "fit_cnmf_batch",
     "init_cnmf",
     "normalize_synergies",
-    "resolve_cnmf_impl",
     "tvaf",
 ]
 
@@ -92,15 +91,18 @@ def cnmf_reconstruct(
     Args:
         c: ``(T, K)`` nonnegative activation trains.
         s: ``(K, D, L)`` spatiotemporal synergies.
-        precision: matmul precision for the contraction (e.g.
-            ``"highest"`` for multi-pass f32 on the TPU MXU, where f32
-            einsums default to bf16 passes); ``None`` keeps the XLA
-            default.
+        precision: matmul precision for the contraction; ``None``
+            follows the caller's default (the fits run their products
+            at full float32, see
+            :func:`~muscle_synergies_tpu.models.mu.full_precision`;
+            ``"default"`` asks for the platform's fast default, which
+            may round float32 products through TF32).
     """
     cs = _lag_stack(c, s.shape[1])  # (D, T, K)
     return jnp.einsum("dtk,kdl->tl", cs, s, precision=precision)
 
 
+@full_precision
 def cnmf_update(
     x: jnp.ndarray,
     c: jnp.ndarray,
@@ -145,54 +147,6 @@ def cnmf_update(
     return c, s
 
 
-def cnmf_block_b(b: int) -> Optional[int]:
-    """Legal Pallas batch tile for ``b`` trials, or ``None``.
-
-    Mosaic's 128-lane divisibility rule admits exactly two shapes for
-    the convolutive kernel: full 128-wide tiles, or one block spanning
-    the whole batch — and whole-batch blocks beyond 128 lanes overflow
-    scoped VMEM at realistic lag depths (block 256 fails remote
-    compile; see the kernel docstring).  Anything else must take the
-    XLA path.
-
-    Every admitted shape is validated against float64 host references
-    on a real v5e (``scripts/validate_cnmf_tpu.py``, 2026-08-19,
-    artifact ``BENCH_CNMF_TILES.json``): whole-batch tiles at 4, 8 and
-    100 lanes and the multi-tile ``block_b=128`` grid at batch 256 all
-    compile and land ~1e-6 max relative error.
-    """
-    if b % 128 == 0:
-        return 128
-    if b <= 128:
-        return b
-    return None
-
-
-def resolve_cnmf_impl(impl: str, batch: int) -> str:
-    """Resolve ``"auto"`` to ``"pallas"``/``"xla"`` for a batch size.
-
-    The single home of the selection rule: the fused kernel wins only
-    on TPU, only when the batch has a legal tile (:func:`cnmf_block_b`)
-    that fills a reasonable fraction of the 128-wide lane dimension.
-    The ``>= 8``-lane floor is a throughput heuristic (a 4-lane tile
-    leaves 97% of the VPU lanes idle), not a legality bound — sub-8
-    whole-batch tiles are chip-validated correct (see
-    :func:`cnmf_block_b`) and remain reachable via ``impl="pallas"``.
-    """
-    if impl != "auto":
-        if impl not in {"xla", "pallas"}:
-            raise ValueError(f"unknown impl: {impl!r}")
-        return impl
-    block = cnmf_block_b(batch)
-    return (
-        "pallas"
-        if jax.default_backend() == "tpu"
-        and block is not None
-        and block >= 8
-        else "xla"
-    )
-
-
 class CNMFState(NamedTuple):
     c: jnp.ndarray  # (T, K) activations
     s: jnp.ndarray  # (K, D, L) spatiotemporal synergies
@@ -201,6 +155,7 @@ class CNMFState(NamedTuple):
     converged: jnp.ndarray  # bool
 
 
+@full_precision
 def _frobenius_error(x, c, s, precision=None):
     diff = x - cnmf_reconstruct(c, s, precision=precision)
     return jnp.sqrt(jnp.sum(diff * diff))
@@ -239,8 +194,8 @@ def fit_cnmf(
         precision: matmul precision for the update contractions (see
             :func:`cnmf_reconstruct`).  The stopping criterion's error
             checks default to ``jax.lax.Precision.HIGHEST`` regardless
-            (a bf16-rounded Frobenius statistic flips near-threshold
-            stopping decisions; chip-measured) — passing an explicit
+            (a reduced-precision Frobenius statistic can flip
+            near-threshold stopping decisions) — passing an explicit
             ``precision`` applies it to the checks too.
     """
     if not (update_c or update_s):
@@ -289,48 +244,15 @@ def fit_cnmf_batch(
     check_every: int = 10,
     update_c: bool = True,
     update_s: bool = True,
-    impl: str = "xla",
-    block_b: int = None,
     precision=None,
 ) -> CNMFState:
     """Convergence-mode convolutive NMF over a ``(B, T, L)`` stack.
 
-    ``impl="xla"`` vmaps :func:`fit_cnmf`; per-trial stopping is exact
-    (each trial's while-loop condition is evaluated independently under
-    vmap, so converged trials freeze while the rest keep iterating).
-    ``impl="pallas"`` drives the VMEM-resident
-    :func:`muscle_synergies_tpu.models.kernels.cnmf_iterations_pallas`
-    in ``check_every``-iteration chunks interleaved with batched XLA
-    Frobenius checks — the same chunked architecture as
-    :func:`muscle_synergies_tpu.models.batch.fit_mu_beta_batch` — with
-    identical per-trial stopping semantics.
-
-    ``precision`` threads through every XLA contraction; on the Pallas
-    path the update kernel is already pure f32 on the VPU, so it
-    applies only to the interleaved XLA divergence checks.
+    Vmaps :func:`fit_cnmf`; per-trial stopping is exact (each trial's
+    while-loop condition is evaluated independently under vmap, so
+    converged trials freeze while the rest keep iterating).
+    ``precision`` threads through every contraction.
     """
-    if impl == "pallas":
-        if not (update_c and update_s):
-            raise ValueError(
-                "the Pallas path always updates both factors; use "
-                "impl='xla' for update_c=False / update_s=False "
-                "(the frozen-factor paths)"
-            )
-        if block_b is None:
-            block_b = cnmf_block_b(xs.shape[0])
-            if block_b is None:
-                raise ValueError(
-                    f"batch {xs.shape[0]} has no legal Pallas tile "
-                    "(must be a multiple of 128, or <= 128); use "
-                    "impl='xla'"
-                )
-        return _fit_cnmf_batch_pallas(
-            jnp.asarray(xs), jnp.asarray(c0), jnp.asarray(s0),
-            max_iter, float(tol), check_every, block_b,
-            precision=precision,
-        )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _fit_cnmf_batch_xla(
         xs, c0, s0, max_iter=max_iter, tol=tol,
         check_every=check_every, update_c=update_c, update_s=update_s,
@@ -362,82 +284,6 @@ def _fit_cnmf_batch_xla(
             precision=precision,
         )
     )(xs, c0, s0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "max_iter", "tol", "check_every", "block_b", "interpret",
-        "precision",
-    ),
-)
-def _fit_cnmf_batch_pallas(
-    xs, c0, s0, max_iter, tol, check_every, block_b, interpret=False,
-    precision=None,
-) -> CNMFState:
-    """Convolutive fit driven by the Pallas kernel in checked chunks.
-
-    Each ``while_loop`` step runs ``check_every`` kernel iterations on
-    the whole batch and discards the updates of already-stopped trials
-    (select on the per-trial active mask) — equivalent to freezing
-    them, so ``n_iter``/``converged``/factors match
-    ``vmap(fit_cnmf)`` iterate-for-iterate.  Like :func:`fit_cnmf`
-    there is no tail chunk: the divergence is only evaluated at
-    multiples of ``check_every`` and the last chunk may overshoot
-    ``max_iter`` the same way the XLA while-loop does.
-
-    On this path ``precision`` only affects the convergence check (the
-    kernel does the updates), so it defaults to
-    ``jax.lax.Precision.HIGHEST`` rather than ``None``: the kernel is
-    f32-exact and a bf16-MXU-rounded Frobenius statistic wastes that
-    (chip-measured 2026-08-19, fitcnmf err 3.4e-2/gap10 vs the f64
-    host fit before the fix).  One f32-exact reconstruction per
-    ``check_every`` kernel iterations is a few percent of the chunk.
-    """
-    from .kernels.cnmf_pallas import cnmf_iterations_pallas
-
-    check_precision = (
-        precision if precision is not None else jax.lax.Precision.HIGHEST
-    )
-    err_fn = jax.vmap(
-        functools.partial(_frobenius_error, precision=check_precision)
-    )
-    c0 = c0.astype(xs.dtype)
-    s0 = s0.astype(xs.dtype)
-    error_init = err_fn(xs, c0, s0)
-
-    def cond(state: CNMFState):
-        return jnp.any((state.n_iter < max_iter) & ~state.converged)
-
-    def chunk(state: CNMFState):
-        active = (state.n_iter < max_iter) & ~state.converged
-        c_new, s_new = cnmf_iterations_pallas(
-            xs, state.c, state.s, check_every, block_b=block_b,
-            interpret=interpret,
-        )
-        c = jnp.where(active[:, None, None], c_new, state.c)
-        s = jnp.where(active[:, None, None, None], s_new, state.s)
-        error = err_fn(xs, c, s)
-        improvement = (state.previous_error - error) / jnp.maximum(
-            error_init, EPSILON
-        )
-        return CNMFState(
-            c,
-            s,
-            state.n_iter + jnp.where(active, check_every, 0),
-            jnp.where(active, error, state.previous_error),
-            jnp.where(active, improvement < tol, state.converged),
-        )
-
-    b = xs.shape[0]
-    init = CNMFState(
-        c0,
-        s0,
-        jnp.zeros((b,), jnp.int32),
-        error_init,
-        jnp.zeros((b,), bool),
-    )
-    return jax.lax.while_loop(cond, chunk, init)
 
 
 def _init_c_on_device(x: jnp.ndarray, k: int, n_lags: int,
@@ -538,46 +384,17 @@ def cnmf_iterations_batch(
     s0: jnp.ndarray,
     n_iters,
     update_c: bool = True,
-    impl: str = "xla",
-    block_b: int = None,
     precision=None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """``n_iters`` convolutive updates on a ``(B, T, L)`` batch.
 
     The fixed-iteration benchmarking/chunking twin of
-    :func:`fit_cnmf_batch` (no convergence checks).
+    :func:`fit_cnmf_batch` (no convergence checks); ``n_iters`` may be
+    a traced scalar.
 
     Args:
-        impl: ``"xla"`` (lag-stacked einsums — bf16 MXU passes on TPU,
-            any batch size) or ``"pallas"`` (the VMEM-resident
-            lane-packed kernel: faster AND ~3 decades more accurate on
-            TPU, since it runs pure-f32 on the VPU; batch must divide
-            by ``block_b``).  With ``"xla"``, ``n_iters`` may be a
-            traced scalar; the Pallas path needs a static int.
-        precision: matmul precision for the XLA einsums; ignored by
-            the Pallas kernel (always pure f32 on the VPU).
+        precision: matmul precision for the lag-stacked einsums.
     """
-    if impl == "pallas":
-        from .kernels.cnmf_pallas import cnmf_iterations_pallas
-
-        if not update_c:
-            raise ValueError(
-                "the Pallas path always updates C; use impl='xla' "
-                "for update_c=False (the frozen-activations path)"
-            )
-        if block_b is None:
-            block_b = cnmf_block_b(xs.shape[0])
-            if block_b is None:
-                raise ValueError(
-                    f"batch {xs.shape[0]} has no legal Pallas tile "
-                    "(must be a multiple of 128, or <= 128); use "
-                    "impl='xla'"
-                )
-        return cnmf_iterations_pallas(
-            xs, c0, s0, int(n_iters), block_b=block_b
-        )
-    if impl != "xla":
-        raise ValueError(f"unknown impl: {impl!r}")
     return _cnmf_iterations_xla(
         xs, c0, s0, n_iters, update_c=update_c, precision=precision
     )
@@ -658,49 +475,21 @@ class TimeVaryingSynergyResult(NamedTuple):
     restart_errors: np.ndarray
 
 
-def find_time_varying_synergies(
-    signal_df,
+def _time_varying(
+    x_host: np.ndarray,
     n_synergies: int,
     n_lags: int,
-    max_iter: int = 500,
-    tol: float = 1e-5,
-    n_inits: int = 4,
-    seed: int = 0,
-    impl: str = "auto",
-    precision=None,
+    max_iter: int,
+    tol: float,
+    n_inits: int,
+    seed: int,
+    impl: str,
+    precision,
 ) -> TimeVaryingSynergyResult:
-    """Extract d'Avella-style time-varying synergies from an EMG frame.
-
-    The beyond-reference companion to ``find_synergies`` (reference
-    analysis.py:713 extracts time-invariant synergies only): each
-    synergy is a ``(n_lags, n_muscles)`` spatiotemporal pattern and the
-    model is a sum of convolutions.  Multi-restart is free parallelism
-    on TPU: the ``n_inits`` random restarts are stacked on a batch axis
-    and solved in ONE device dispatch by :func:`fit_cnmf_batch`; the
-    best restart (lowest final Frobenius error) is returned with
-    unit-norm synergies.
-
-    Args:
-        signal_df: nonnegative ``(T, n_muscles)`` DataFrame (e.g. a
-            rectified envelope), or a plain 2-D array.
-        n_synergies: number of time-varying synergies ``K``.
-        n_lags: temporal extent ``D`` of each synergy, in samples.
-        max_iter / tol: sklearn-style stopping (see :func:`fit_cnmf`).
-        n_inits: random restarts (batched into one computation).
-        seed: base seed; restart ``r`` uses ``seed + r``.
-        impl: ``"xla"``, ``"pallas"``, or ``"auto"`` (default) —
-            the fused VMEM kernel on TPU when the restart batch fills
-            a reasonable fraction of a 128-lane tile (``n_inits >= 8``;
-            faster and pure-f32 on the VPU, so ~3 decades more accurate
-            than the bf16 MXU einsums), the batched XLA path otherwise.
-        precision: matmul precision for the XLA contractions (e.g.
-            ``"highest"`` — multi-pass f32 on the MXU, recovering the
-            Pallas path's accuracy on the einsum path); ignored by the
-            Pallas update kernel itself.
-    """
-    import pandas
-
-    x_host = np.asarray(signal_df, dtype=float)
+    """Array core of :func:`find_time_varying_synergies`: the same
+    result with numpy arrays in place of the DataFrames (``synergies``
+    is ``{k: (D, L) array}``, ``activations`` ``(T, K)`` and
+    ``vaf_per_muscle`` ``(L,)``)."""
     if x_host.ndim != 2:
         raise ValueError(f"expected a 2-D matrix, got shape {x_host.shape}")
     if x_host.size == 0:
@@ -719,13 +508,13 @@ def find_time_varying_synergies(
     if n_inits < 1:
         raise ValueError(f"n_inits must be >= 1, got {n_inits}")
 
-    impl = resolve_cnmf_impl(impl, n_inits)
+    resolve_impl(impl, "cnmf")
 
     xs = np.broadcast_to(x_host, (n_inits,) + x_host.shape)
     c0, s0 = init_cnmf(xs, n_synergies, n_lags, seed=seed)
     state = fit_cnmf_batch(
         jnp.asarray(xs), jnp.asarray(c0), jnp.asarray(s0),
-        max_iter=max_iter, tol=tol, impl=impl, precision=precision,
+        max_iter=max_iter, tol=tol, precision=precision,
     )
     errors = np.asarray(state.previous_error)
     best = int(np.argmin(errors))
@@ -737,27 +526,79 @@ def find_time_varying_synergies(
     tot2 = (x_host**2).sum(axis=0)
     per_muscle = 1.0 - err2 / np.where(tot2 == 0, 1.0, tot2)
 
+    overall = 1.0 - float(((x_host - recon) ** 2).sum()) / max(
+        float((x_host**2).sum()), float(EPSILON)
+    )
+    return TimeVaryingSynergyResult(
+        synergies={k: s_np[k] for k in range(n_synergies)},
+        activations=c_np,
+        vaf=overall,
+        vaf_per_muscle=per_muscle,
+        n_iter=int(state.n_iter[best]),
+        restart_errors=errors,
+    )
+
+
+def find_time_varying_synergies(
+    signal_df,
+    n_synergies: int,
+    n_lags: int,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+    n_inits: int = 4,
+    seed: int = 0,
+    impl: str = "auto",
+    precision=None,
+) -> TimeVaryingSynergyResult:
+    """Extract d'Avella-style time-varying synergies from an EMG frame.
+
+    The beyond-reference companion to ``find_synergies`` (reference
+    analysis.py:713 extracts time-invariant synergies only): each
+    synergy is a ``(n_lags, n_muscles)`` spatiotemporal pattern and the
+    model is a sum of convolutions.  Multi-restart is free parallelism
+    on the device: the ``n_inits`` random restarts are stacked on a batch axis
+    and solved in ONE device dispatch by :func:`fit_cnmf_batch`; the
+    best restart (lowest final Frobenius error) is returned with
+    unit-norm synergies.
+
+    Args:
+        signal_df: nonnegative ``(T, n_muscles)`` DataFrame (e.g. a
+            rectified envelope), or a plain 2-D array.
+        n_synergies: number of time-varying synergies ``K``.
+        n_lags: temporal extent ``D`` of each synergy, in samples.
+        max_iter / tol: sklearn-style stopping (see :func:`fit_cnmf`).
+        n_inits: random restarts (batched into one computation).
+        seed: base seed; restart ``r`` uses ``seed + r``.
+        impl: ``"auto"`` (default) or ``"xla"``: the convolutive
+            model has no hand-written kernel, so both run the batched
+            XLA fit (see
+            :func:`muscle_synergies_tpu.utils.platform.resolve_impl`;
+            ``"pallas"`` raises).
+        precision: matmul precision for the contractions (e.g.
+            ``"highest"`` for full float32 products).
+    """
+    import pandas
+
+    res = _time_varying(
+        np.asarray(signal_df, dtype=float), n_synergies, n_lags,
+        max_iter, tol, n_inits, seed, impl, precision,
+    )
+    t, n_m = res.activations.shape[0], res.vaf_per_muscle.shape[0]
     if isinstance(signal_df, pandas.DataFrame):
         columns, index = signal_df.columns, signal_df.index
     else:
         columns = pandas.RangeIndex(n_m)
         index = pandas.RangeIndex(t)
-    synergies = {
-        k: pandas.DataFrame(s_np[k], columns=columns) for k in range(n_synergies)
-    }
-    activations = pandas.DataFrame(
-        c_np, index=index, columns=[f"synergy {k}" for k in range(n_synergies)]
-    )
-    overall = 1.0 - float(((x_host - recon) ** 2).sum()) / max(
-        float((x_host**2).sum()), float(EPSILON)
-    )
-    return TimeVaryingSynergyResult(
-        synergies=synergies,
-        activations=activations,
-        vaf=overall,
-        vaf_per_muscle=pandas.Series(per_muscle, index=columns),
-        n_iter=int(state.n_iter[best]),
-        restart_errors=errors,
+    return res._replace(
+        synergies={
+            k: pandas.DataFrame(v, columns=columns)
+            for k, v in res.synergies.items()
+        },
+        activations=pandas.DataFrame(
+            res.activations, index=index,
+            columns=[f"synergy {k}" for k in range(n_synergies)],
+        ),
+        vaf_per_muscle=pandas.Series(res.vaf_per_muscle, index=columns),
     )
 
 
@@ -803,7 +644,7 @@ class CNMFModel:
 
     def _set_fitted(self, res: "TimeVaryingSynergyResult") -> None:
         self.synergies_ = np.stack(
-            [res.synergies[k].to_numpy() for k in range(self.n_components)]
+            [np.asarray(res.synergies[k]) for k in range(self.n_components)]
         )
         self.n_components_ = self.n_components
         self.n_lags_ = self.n_lags
@@ -813,13 +654,13 @@ class CNMFModel:
 
     def fit_transform(self, X) -> np.ndarray:
         """Fit the library and return the ``(T, K)`` activations."""
-        res = find_time_varying_synergies(
-            X, self.n_components, self.n_lags, max_iter=self.max_iter,
-            tol=self.tol, n_inits=self.n_inits, seed=self.random_state,
-            impl=self.impl, precision=self.precision,
+        res = _time_varying(
+            np.asarray(X, dtype=float), self.n_components, self.n_lags,
+            self.max_iter, self.tol, self.n_inits, self.random_state,
+            self.impl, self.precision,
         )
         self._set_fitted(res)
-        return res.activations.to_numpy()
+        return res.activations
 
     def fit(self, X) -> "CNMFModel":
         self.fit_transform(X)

@@ -14,7 +14,7 @@ ends at VAF, reference analysis.py:597-667) — beyond-reference
 capability.  Classification itself is a tiny host-side problem
 (hundreds of trials x tens of features), so this delegates to
 scikit-learn's compiled LDA/logistic solvers; the expensive part —
-producing the per-trial coefficients — is the TPU-side factorization.
+producing the per-trial coefficients — is the device-side factorization.
 """
 
 from __future__ import annotations

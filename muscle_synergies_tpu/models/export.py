@@ -1,7 +1,7 @@
 """Serve fitted models without the framework: StableHLO export.
 
-The production serving shape: fit a synergy model once (on a TPU
-mesh), then run ``transform`` on new trials from a process that has
+The production serving shape: fit a synergy model once (on a GPU or
+a mesh of them), then run ``transform`` on new trials from a process that has
 *neither this package nor the training code* — only jax.  ``jax.export``
 serializes the jitted transform program (StableHLO + calling
 convention) for a fixed input signature; the artifact replays on every
@@ -74,12 +74,20 @@ def _transform_fn(model):
     )
 
 
+def _lower(model, shape, dtype, platforms) -> _jax_export.Exported:
+    """:func:`export_transform`'s ``jax.export.Exported``, unserialized."""
+    fn = _transform_fn(model)
+    return _jax_export.export(jax.jit(fn), platforms=platforms)(
+        _signature(shape, dtype)
+    )
+
+
 def export_transform(
     model,
     shape: Sequence[Union[int, str, None]],
     *,
     dtype=jnp.float32,
-    platforms: Optional[Tuple[str, ...]] = ("cpu", "tpu"),
+    platforms: Optional[Tuple[str, ...]] = ("cpu", "cuda"),
     path=None,
 ) -> bytes:
     """Serialize a fitted estimator's ``transform`` as StableHLO.
@@ -91,19 +99,17 @@ def export_transform(
             entries declare symbolic (polymorphic) dimensions, e.g.
             ``("b", 200, 8)`` serves any batch size.
         dtype: input dtype baked into the artifact (default float32 —
-            the production TPU dtype; use float64 to replay CPU-exact
-            results).
+            the production device dtype; use float64 to replay
+            CPU-exact results).
         platforms: lowering targets recorded in the artifact (default
-            both CPU and TPU).
+            CPU and NVIDIA GPUs, ``"cuda"``).
         path: optionally also write the bytes here, atomically.
 
     Returns:
-        the serialized artifact bytes (``jax.export`` format).
+        the serialized artifact bytes (``jax.export`` format, which
+        needs the ``flatbuffers`` package).
     """
-    fn = _transform_fn(model)
-    exported = _jax_export.export(jax.jit(fn), platforms=platforms)(
-        _signature(shape, dtype)
-    )
+    exported = _lower(model, shape, dtype, platforms)
     blob = exported.serialize()
     if path is not None:
         path = Path(path)
@@ -122,10 +128,9 @@ def load_transform(source):
     needed at load time — none of this package's solver code runs.
     """
     if isinstance(source, (str, os.PathLike)):
-        blob = Path(source).read_bytes()
+        exported = _jax_export.deserialize(Path(source).read_bytes())
     else:
-        blob = bytes(source)
-    exported = _jax_export.deserialize(blob)
+        exported = _jax_export.deserialize(bytes(source))
 
     def fn(x) -> np.ndarray:
         return np.asarray(exported.call(jnp.asarray(x)))

@@ -16,17 +16,15 @@ default solver is ``'cd'``):
   first iteration's, ``violation / violation_init <= tol``.
 
 This is HALS (Cichocki & Phan 2009) expressed with rank-1 Gram updates,
-which keeps every inner step a fused matvec on the MXU/VPU.
+which keeps every inner step a fused matvec.
 
 Unlike the MU/beta/cNMF/NM3F fits, the stopping statistic here cannot
 be decoupled from the update precision: the violation is a byproduct
-of the coordinate pass itself (per-update projected-gradient deltas),
-so on TPU the XLA path's statistic inherits the updates' bf16 MXU
-rounding.  The f32-exact alternative is the fused Pallas fit
-(``models.kernels.fit_cd_pallas``, what ``impl='auto'`` picks on TPU),
-whose pass — and therefore whose violation — is pure-f32 VPU work;
-chip-measured, the XLA CD fit drifts ~1.0 relative factor error from
-the float64 host fit while the kernel stays at 3.6e-4 (BENCH_CHECK).
+of the coordinate pass itself (per-update projected-gradient deltas).
+So the pass runs its products at full float32 precision
+(:func:`~muscle_synergies_tpu.models.mu.full_precision`), as the fused
+kernel (``models.kernels.fit_cd_pallas``) does with exact float32
+multiply-adds.
 """
 
 from __future__ import annotations
@@ -37,9 +35,12 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from .mu import full_precision
+
 __all__ = ["cd_pass", "fit_cd", "CDState"]
 
 
+@full_precision
 def cd_pass(
     x: jnp.ndarray,
     w: jnp.ndarray,

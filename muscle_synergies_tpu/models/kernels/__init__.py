@@ -1,7 +1,6 @@
-"""Pallas TPU kernels for the NMF hot loops."""
+"""Pallas solver kernels for the GPU, compiled through Triton."""
 
 from .beta_pallas import beta_mu_iterations_pallas, kl_mu_iterations_pallas
-from .cnmf_pallas import cnmf_iterations_pallas
 from .cd_pallas import cd_iterations_pallas, fit_cd_pallas
 from .mu_pallas import fit_mu_pallas, mu_iterations_pallas
 
@@ -12,5 +11,4 @@ __all__ = [
     "fit_cd_pallas",
     "kl_mu_iterations_pallas",
     "beta_mu_iterations_pallas",
-    "cnmf_iterations_pallas",
 ]

@@ -1,51 +1,25 @@
-"""Fused batched beta-divergence MU iterations as a Pallas TPU kernel.
+"""Fused batched beta-divergence MU iterations as a Pallas kernel (Triton).
 
-Same architecture as :mod:`muscle_synergies_tpu.models.kernels.mu_pallas`
-(trials on the 128-wide lane dimension, the whole block resident in
-VMEM across iterations), specialized for the non-Frobenius objectives
-(``beta_loss='kullback-leibler'`` / ``'itakura-saito'``, sklearn
-``solver='mu'``):
+Same design as :mod:`.mu_pallas`, specialized for the non-Frobenius
+objectives (``beta_loss='kullback-leibler'`` / ``'itakura-saito'`` or
+any float beta, sklearn ``solver='mu'``).  There is no Gram shortcut:
+each half-iteration rebuilds ``WH`` and the quotient weights over the
+full ``N x L`` of every trial.  The XLA path writes those to memory
+and reads them back on every trip; here they stay in registers.
 
-- unlike the Frobenius updates there is no Gram shortcut — each
-  half-iteration reconstructs ``WH`` (k*L lane-parallel FMA chains)
-  and forms the quotient ``X / max(WH, EPSILON)``;
-- W's denominator is the per-component row-sum of H, H's the
-  column-sum of W with sklearn's ``W_sum == 0 -> 1`` guard;
-- sklearn's post-update flush ``H[H < float64-eps] = 0`` is applied.
+- W's denominator is the per-component row-sum of H (KL) or the
+  ``WH^(beta-1)`` projection, H's the matching column sums with
+  sklearn's ``W_sum == 0 -> 1`` guard;
+- sklearn's ``gamma`` damping (``1/(2-beta)`` for ``beta < 1``,
+  ``1/(beta-1)`` for ``beta > 2``) and its stability flushes (W for
+  ``beta < 1``, H for ``beta <= 1``) apply;
+- half-integer exponents lower to sqrt chains, the rest to
+  ``exp(p*log(v))``.
 
-For betas other than 1 the denominator is the ``WH^(beta-1)``
-projection, sklearn's ``gamma`` damping (``1/(2-beta)`` for
-``beta < 1``, ``1/(beta-1)`` for ``beta > 2``) applies to the
-multiplicative delta, and the stability flushes zero sub-``f64-eps``
-entries of W (``beta < 1``) and H (``beta <= 1``).  Any float beta is
-supported — the reference forwards arbitrary ``beta_loss`` floats to
-sklearn through ``**kwargs`` (reference analysis.py:848-864) — with
-half-integer exponents lowered to sqrt/rsqrt chains and the rest to
-``exp(p*log(v))`` on the VPU.  Numerics match
-:func:`muscle_synergies_tpu.models.beta.mu_update_beta` for every
-beta (same clamps, same order).
-
-FLOP audit (k=4, L=8, N=200, per trial per iteration; count FMAs
-as 2 FLOPs):
-
-- **KL (beta=1)**: 2 ``WH`` rebuilds (k*L*N FMAs each) + the W/H
-  numerator accumulations (k*L*N each) ≈ 25.6 K FMAs ≈ **51 KFLOP**,
-  plus ~4.0 K multi-cycle VPU ops (the 2*L*N quotient divides + k*N
-  delta divides).  Measured ~53.8k iter/s × 1024 trials =
-  **2.8 TFLOP/s of FMA work, ~65% of the ~4.3 TFLOP/s empirical VPU
-  ceiling** (see ``cd_pallas``); the missing issue slots are the
-  divides, which the Frobenius kernels mostly avoid (~0.8 K/iter).
-- **Itakura-Saito (beta=0)**: KL's work *plus* two denominator
-  projection passes (k*L*N FMAs each — beta=1 is special: its
-  denominators are factor sums) and k*N gamma-damping sqrts ≈
-  38.4 K FMAs ≈ **77 KFLOP** with the same ~4.0 K divides.  Measured
-  ~35.0k iter/s = **2.75 TFLOP/s — the same arithmetic efficiency as
-  KL** (IS/KL FLOP ratio 1.50, measured throughput ratio 1.54): the
-  lower iter/s headline is the objective's extra arithmetic, not an
-  implementation gap.  Explicitly sharing the ``WH^-1``/``WH^-2``
-  reciprocal (see :func:`_num_den_weights`) measured identically
-  (35.0k vs 35.6k, within run variance) — Mosaic already CSEs it, so
-  the kernel is jointly FMA/divide-bound at this balance.
+Numerics match :func:`muscle_synergies_tpu.models.beta.mu_update_beta`
+for every beta (same clamps, same order).  The quotient weights are
+masked to zero on the padded sample rows, where ``WH`` is clamped to
+epsilon and a negative power of it could overflow.
 """
 
 from __future__ import annotations
@@ -54,11 +28,21 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..beta import F64_EPS, _gamma
 from ..mu import EPSILON
+from ._triton import (
+    add_all,
+    call,
+    col,
+    load_h,
+    load_rows,
+    pack,
+    rsum,
+    store_h,
+    store_rows,
+    unpack,
+)
 
 __all__ = ["beta_mu_iterations_pallas", "kl_mu_iterations_pallas"]
 
@@ -68,8 +52,7 @@ def _pow(v, p: float):
 
     ``v`` is strictly positive (clamped by the caller).  Half-integer
     exponents become multiply/sqrt chains; anything else lowers to
-    ``exp(p * log(v))``, which Mosaic maps onto the VPU's
-    transcendental units.
+    ``exp(p * log(v))``.
     """
     if p == 0.0:
         return jnp.ones_like(v)
@@ -107,9 +90,7 @@ def _num_den_weights(x_m, wh_m, beta: float):
     square root (half-integer betas) or the logarithm (generic betas)
     — is computed once and reused.  Every shared form is bitwise
     identical to evaluating :func:`_pow` twice (same inputs, same
-    operation order), so kernel-vs-XLA parity is unaffected; the
-    explicit sharing removes a second multi-cycle VPU divide or
-    transcendental per element that survived Mosaic's lowering.
+    operation order), so kernel-vs-XLA parity is unaffected.
     """
     wh_num = jnp.maximum(wh_m, EPSILON) if beta < 2.0 else wh_m
     if beta == 1.0:
@@ -156,148 +137,113 @@ def _damp(delta, gamma: float):
     return jnp.exp(gamma * jnp.log(delta))
 
 
-def _beta_step(x, w, h, k: int, l: int, beta: float):
-    """One lane-parallel beta-MU update (W then H, sklearn's order)."""
+def _weights(x, w, h, beta: float, valid):
+    """Per-channel quotient weights of the current ``WH``."""
+    k = len(w)
+    num_w, den_w = [], []
+    for m, xm in enumerate(x):
+        wh = add_all([w[j] * col(h[j][m]) for j in range(k)])
+        a, bden = _num_den_weights(xm, wh, beta)
+        if valid is not None:
+            a = jnp.where(valid, a, 0.0)
+            bden = None if bden is None else jnp.where(valid, bden, 0.0)
+        num_w.append(a)
+        den_w.append(bden)
+    return num_w, den_w
+
+
+def _beta_step(x, w, h, beta: float, valid):
+    """One beta-MU update (W then H, sklearn's order) on list layouts."""
+    k, l = len(w), len(x)
     gamma = _gamma(beta)
 
     # ---- W update ----
-    num_w, den_w = [], []
-    for m in range(l):
-        wh = sum(w[j] * h[j, m][None, :] for j in range(k))  # (N, B)
-        a, bden = _num_den_weights(x[m], wh, beta)
-        num_w.append(a)
-        if bden is not None:  # KL has no per-channel denominator weight
-            den_w.append(bden)
+    num_w, den_w = _weights(x, w, h, beta, valid)
     w_new = []
     for i in range(k):
-        num = sum(num_w[m] * h[i, m][None, :] for m in range(l))  # (N, B)
+        num = add_all([num_w[m] * col(h[i][m]) for m in range(l)])
         if beta == 1.0:
-            h_sum = sum(h[i, m] for m in range(l))  # (B,)
-            den = jnp.where(h_sum == 0, EPSILON, h_sum)[None, :]
+            h_sum = add_all([h[i][m] for m in range(l)])
+            den = col(jnp.where(h_sum == 0, EPSILON, h_sum))
         else:
-            den = sum(den_w[m] * h[i, m][None, :] for m in range(l))
+            den = add_all([den_w[m] * col(h[i][m]) for m in range(l)])
             den = jnp.where(den == 0, EPSILON, den)
         val = w[i] * _damp(num / den, gamma)
         if beta < 1.0:
             val = jnp.where(val < F64_EPS, 0.0, val)
         w_new.append(val)
-    w = jnp.stack(w_new)
+    w = w_new
 
     # ---- H update with the fresh W ----
-    num_w, den_w = [], []
-    for m in range(l):
-        wh = sum(w[j] * h[j, m][None, :] for j in range(k))
-        a, bden = _num_den_weights(x[m], wh, beta)
-        num_w.append(a)
-        if bden is not None:
-            den_w.append(bden)
+    num_w, den_w = _weights(x, w, h, beta, valid)
     h_new = []
     for i in range(k):
         if beta == 1.0:
-            w_sum = jnp.sum(w[i], axis=0)  # (B,)
+            w_sum = rsum(w[i])
             w_sum = jnp.where(w_sum == 0, 1.0, w_sum)
-        rows = []
+        row = []
         for m in range(l):
-            num = jnp.sum(w[i] * num_w[m], axis=0)  # (B,)
+            num = rsum(w[i] * num_w[m])
             if beta == 1.0:
                 delta = num / w_sum
             else:
-                den = jnp.sum(w[i] * den_w[m], axis=0)
+                den = rsum(w[i] * den_w[m])
                 delta = num / jnp.where(den == 0, EPSILON, den)
-            val = h[i, m] * _damp(delta, gamma)
+            val = h[i][m] * _damp(delta, gamma)
             if beta <= 1.0:
-                # sklearn's beta<=1 stability flush
                 val = jnp.where(val < F64_EPS, 0.0, val)
-            rows.append(val)
-        h_new.append(jnp.stack(rows))
-    return w, jnp.stack(h_new)
+            row.append(val)
+        h_new.append(row)
+    return w, h_new
 
 
-def _beta_kernel(x_ref, w_ref, h_ref, w_out, h_out, *, n_iters: int, k: int,
-                 l: int, beta: float):
-    x = x_ref[:]
+def _beta_kernel(x_ref, w_ref, h_ref, w_out, h_out, *, n_iters, k, l, n,
+                 beta):
+    x = load_rows(x_ref, l)
+    n_pad = x[0].shape[1]
+    valid = None
+    if n < n_pad:
+        valid = jax.lax.broadcasted_iota(jnp.int32, x[0].shape, 1) < n
 
     def body(_, carry):
-        return _beta_step(x, *carry, k=k, l=l, beta=beta)
+        return _beta_step(x, *carry, beta=beta, valid=valid)
 
-    w, h = jax.lax.fori_loop(0, n_iters, body, (w_ref[:], h_ref[:]))
-    w_out[:] = w
-    h_out[:] = h
+    w, h = jax.lax.fori_loop(
+        0, n_iters, body, (load_rows(w_ref, k), load_h(h_ref, k, l))
+    )
+    store_rows(w_out, w)
+    store_h(h_out, h)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("n_iters", "beta", "block_b", "interpret")
+    jax.jit, static_argnames=("n_iters", "beta", "interpret")
 )
-def beta_mu_iterations_pallas(
-    xs: jnp.ndarray,
-    w: jnp.ndarray,
-    h: jnp.ndarray,
-    n_iters: int,
-    beta: float = 1.0,
-    block_b: int = 128,
-    interpret: bool = False,
-):
+def beta_mu_iterations_pallas(xs, w, h, n_iters: int, beta: float = 1.0,
+                              interpret: bool = False):
     """Run ``n_iters`` beta-MU iterations on a ``(B, N, L)`` batch.
 
-    Drop-in for the XLA path
-    ``vmap(mu_update_beta(..., beta=beta))`` iterated ``n_iters``
-    times, for any float ``beta`` (1.0 = KL, 0.0 = Itakura-Saito,
-    anything else the generic beta-divergence — sklearn accepts
-    arbitrary floats and the reference forwards them); the batch size
-    must divide by ``block_b``.
+    Drop-in for ``vmap(mu_update_beta(..., beta=beta))`` iterated
+    ``n_iters`` times, for any float ``beta`` (1.0 = KL, 0.0 =
+    Itakura-Saito); any batch size and trial length.
     """
     beta = float(beta)
-    b, n, l = xs.shape
+    _, n, l = xs.shape
     k = w.shape[-1]
-    if b % block_b != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_b={block_b}")
-
-    xt = jnp.transpose(xs, (2, 1, 0))  # (L, N, B)
-    wt = jnp.transpose(w, (2, 1, 0))  # (k, N, B)
-    ht = jnp.transpose(h, (1, 2, 0))  # (k, L, B)
-
+    xt, wt = pack(xs, w)
     kernel = functools.partial(
-        _beta_kernel, n_iters=n_iters, k=k, l=l, beta=beta
+        _beta_kernel, n_iters=n_iters, k=k, l=l, n=n, beta=beta
     )
-    wt_out, ht_out = pl.pallas_call(
-        kernel,
-        grid=(b // block_b,),
-        in_specs=[
-            pl.BlockSpec((l, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n, b), w.dtype),
-            jax.ShapeDtypeStruct((k, l, b), h.dtype),
-        ],
-        interpret=interpret,
-    )(xt, wt, ht)
-
-    return (
-        jnp.transpose(wt_out, (2, 1, 0)),
-        jnp.transpose(ht_out, (2, 0, 1)),
+    wt, h = call(
+        kernel, (xt, wt, h),
+        [jax.ShapeDtypeStruct(wt.shape, w.dtype),
+         jax.ShapeDtypeStruct(h.shape, h.dtype)],
+        name="beta_mu_iterations", interpret=interpret,
     )
+    return unpack(wt, n), h
 
 
-def kl_mu_iterations_pallas(
-    xs: jnp.ndarray,
-    w: jnp.ndarray,
-    h: jnp.ndarray,
-    n_iters: int,
-    block_b: int = 128,
-    interpret: bool = False,
-):
+def kl_mu_iterations_pallas(xs, w, h, n_iters: int, interpret: bool = False):
     """KL specialization of :func:`beta_mu_iterations_pallas`."""
     return beta_mu_iterations_pallas(
-        xs, w, h, n_iters, beta=1.0, block_b=block_b, interpret=interpret
+        xs, w, h, n_iters, beta=1.0, interpret=interpret
     )

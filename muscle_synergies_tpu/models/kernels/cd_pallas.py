@@ -1,30 +1,16 @@
-"""Fused batched HALS/coordinate-descent iterations as a Pallas kernel.
+"""Fused batched HALS/coordinate-descent NMF as a Pallas kernel (Triton).
 
-Companion to :mod:`mu_pallas` for the 'cd' solver (the sklearn default
-the reference relies on).  Same design: trials ride the lane
-dimension, the trial block stays resident in VMEM across all
-iterations, and the small component loop unrolls.
+Companion to :mod:`.mu_pallas` for the ``'cd'`` solver, sklearn's
+default and the :class:`~muscle_synergies_tpu.utils.config.PipelineConfig`
+default.  The XLA fit unrolls k coordinate updates per half-step inside
+a vmapped ``lax.while_loop`` whose predicate returns to the host every
+iteration; here one program runs one trial to convergence with its
+factors in registers.
 
-One outer iteration = one cyclic coordinate pass over W's components
-(H fixed) followed by one over H's (W fixed), exactly the update order
-of :func:`muscle_synergies_tpu.models.hals.cd_pass` with
-``shuffle=False`` — so the kernel's iterates match the XLA solver's up
-to float reordering.  :func:`cd_iterations_pallas` is the
-fixed-iteration throughput primitive; :func:`fit_cd_pallas` runs the
-full solve to sklearn's violation-based convergence per lane, with
-converged trials frozen, entirely in VMEM.
-
-FLOP audit (k=4, L=8, N=200, per trial per outer iteration): ``X Ht``
-k*L*N FMAs + W-pass gradients k*k*N + ``Wt W`` k(k+1)/2*N + ``Wt X``
-k*L*N + (B,)-vector H-pass work ≈ 18.1 K FMAs ≈ **36 KFLOP**, plus
-only ~0.8 K multi-cycle ops (one guarded divide per coordinate) — the
-leanest divide budget in the solver suite.  At the measured ~116.9k
-iter/s on a 1024-trial batch that is **~4.3 TFLOP/s of counted FMA
-work — the highest sustained rate of any kernel here, and the
-empirical f32 VPU ceiling for this suite** (it reads above the ~3.85
-TFLOP/s nominal estimate quoted in ``mu_pallas``; treat the nominal
-number as approximate).  MU's ~3.9 TFLOP/s is ~90% of this ceiling,
-the difference being MU's extra per-element divides and selects.
+One outer iteration is one cyclic coordinate pass over W's components
+(H fixed) followed by one over H's (W fixed): the update order of
+:func:`muscle_synergies_tpu.models.hals.cd_pass` with ``shuffle=False``,
+so the iterates match the XLA solver's up to float reordering.
 """
 
 from __future__ import annotations
@@ -33,154 +19,144 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from ._triton import (
+    add_all,
+    call,
+    col,
+    load_h,
+    load_rows,
+    pack,
+    rsum,
+    store_h,
+    store_rows,
+    unpack,
+)
 
 __all__ = ["cd_iterations_pallas", "fit_cd_pallas"]
 
 
-def _cd_iteration(x, w, h, k: int, l: int, with_violation: bool):
-    """One outer CD iteration (W pass then H pass) on lane layouts.
+def _newton(v, grad, hess, bcast):
+    """Projected Newton step of one coordinate, skipped where hess == 0."""
+    safe = jnp.where(hess == 0, 1.0, hess)
+    new = jnp.maximum(v - grad / bcast(safe), 0.0)
+    return jnp.where(bcast(hess) != 0, new, v)
 
-    Returns ``(w, h, violation)`` with ``violation`` the summed
-    absolute projected gradient of both passes (sklearn's stopping
-    statistic, ``(1, B)``), or ``None`` when ``with_violation=False``.
+
+def _cd_iteration(x, w, h, with_violation: bool):
+    """One outer CD iteration (W pass then H pass) on list layouts.
+
+    Returns ``(w, h, violation)``: the summed absolute projected
+    gradient of both passes per trial (sklearn's stopping statistic,
+    ``(1,)``), or ``None`` when ``with_violation=False``.
     """
-    violation = jnp.zeros_like(x[0][:1]) if with_violation else None  # (1, B)
+    k, l = len(w), len(x)
+    violation = None
+
+    def add_violation(v, pg_sum):
+        return pg_sum if v is None else v + pg_sum
 
     # ---- W pass: cyclic over components, H fixed ----
-    # symmetric Gram: the lower triangle is bitwise the upper one
     hht = [[None] * k for _ in range(k)]
     for i in range(k):
         for j in range(i, k):
-            hht[i][j] = hht[j][i] = sum(
-                h[i, m] * h[j, m] for m in range(l)
-            )  # (B,)
-    xht = [
-        sum(h[s, m][None, :] * x[m] for m in range(l)) for s in range(k)
-    ]  # k x (N, B)
-    w_cols = [w[s] for s in range(k)]
-    for s in range(k):
-        grad = sum(hht[j][s][None, :] * w_cols[j] for j in range(k))
-        grad = grad - xht[s]
-        if with_violation:
-            pg = jnp.where(w_cols[s] == 0.0, jnp.minimum(grad, 0.0), grad)
-            violation = violation + jnp.sum(
-                jnp.abs(pg), axis=0, keepdims=True
+            hht[i][j] = hht[j][i] = add_all(
+                [h[i][m] * h[j][m] for m in range(l)]
             )
-        hess = hht[s][s]
-        safe = jnp.where(hess == 0, 1.0, hess)
-        new_col = jnp.maximum(w_cols[s] - grad / safe[None, :], 0.0)
-        w_cols[s] = jnp.where(hess[None, :] != 0, new_col, w_cols[s])
-    w = jnp.stack(w_cols)
+    xht = [add_all([col(h[s][m]) * x[m] for m in range(l)]) for s in range(k)]
+    w = list(w)
+    for s in range(k):
+        grad = add_all([col(hht[j][s]) * w[j] for j in range(k)]) - xht[s]
+        if with_violation:
+            pg = jnp.where(w[s] == 0.0, jnp.minimum(grad, 0.0), grad)
+            violation = add_violation(violation, rsum(jnp.abs(pg)))
+        w[s] = _newton(w[s], grad, hht[s][s], col)
 
     # ---- H pass: cyclic over components, W fixed ----
     wtw = [[None] * k for _ in range(k)]
     for i in range(k):
         for j in range(i, k):
-            wtw[i][j] = wtw[j][i] = jnp.sum(w[i] * w[j], axis=0)  # (B,)
-    wtx = [
-        jnp.stack([jnp.sum(w[s] * x[m], axis=0) for m in range(l)])
-        for s in range(k)
-    ]  # k x (L, B)
-    h_rows = [h[s] for s in range(k)]
+            wtw[i][j] = wtw[j][i] = rsum(w[i] * w[j])
+    wtx = [[rsum(w[s] * x[m]) for m in range(l)] for s in range(k)]
+    h = [list(row) for row in h]
     for s in range(k):
-        grad = sum(wtw[j][s][None, :] * h_rows[j] for j in range(k))
-        grad = grad - wtx[s]
+        grads = [
+            add_all([wtw[j][s] * h[j][m] for j in range(k)]) - wtx[s][m]
+            for m in range(l)
+        ]
         if with_violation:
-            pg = jnp.where(h_rows[s] == 0.0, jnp.minimum(grad, 0.0), grad)
-            violation = violation + jnp.sum(
-                jnp.abs(pg), axis=0, keepdims=True
-            )
-        hess = wtw[s][s]
-        safe = jnp.where(hess == 0, 1.0, hess)
-        new_row = jnp.maximum(h_rows[s] - grad / safe[None, :], 0.0)
-        h_rows[s] = jnp.where(hess[None, :] != 0, new_row, h_rows[s])
-    h = jnp.stack(h_rows)
+            pg = [
+                jnp.abs(jnp.where(h[s][m] == 0.0, jnp.minimum(g, 0.0), g))
+                for m, g in enumerate(grads)
+            ]
+            violation = add_violation(violation, add_all(pg))
+        h[s] = [
+            _newton(h[s][m], grads[m], wtw[s][s], lambda v: v)
+            for m in range(l)
+        ]
     return w, h, violation
 
 
-def _cd_kernel(x_ref, w_ref, h_ref, w_out, h_out, *, n_iters: int, k: int, l: int):
-    x = x_ref[:]  # (L, N, B)
+def _cd_kernel(x_ref, w_ref, h_ref, w_out, h_out, *, n_iters, k, l):
+    x = load_rows(x_ref, l)
 
     def body(_, carry):
-        w, h, _ = _cd_iteration(x, *carry, k=k, l=l, with_violation=False)
+        w, h, _ = _cd_iteration(x, *carry, with_violation=False)
         return w, h
 
-    w, h = jax.lax.fori_loop(0, n_iters, body, (w_ref[:], h_ref[:]))
-    w_out[:] = w
-    h_out[:] = h
+    w, h = jax.lax.fori_loop(
+        0, n_iters, body, (load_rows(w_ref, k), load_h(h_ref, k, l))
+    )
+    store_rows(w_out, w)
+    store_h(h_out, h)
 
 
 def _fit_cd_kernel(
-    x_ref, w_ref, h_ref, zero_ref, w_out, h_out, n_iter_out, viol_init_out,
-    converged_out,
-    *, max_iter: int, tol: float, k: int, l: int,
+    x_ref, w_ref, h_ref, w_out, h_out, n_iter_out, viol_out,
+    conv_out, *, max_iter, tol, k, l,
 ):
-    """CD solve to sklearn's violation-based convergence, in VMEM.
+    """CD solve of one trial to sklearn's violation-based convergence.
 
-    Replicates :func:`muscle_synergies_tpu.models.hals.fit_cd` per lane
-    (trial): one cyclic W pass + H pass per iteration, the summed
-    |projected gradient| recorded on the first iteration as the
-    reference level, convergence when ``violation / violation_init <=
-    tol`` (or a zero first violation), converged lanes frozen.  Same
-    Mosaic conventions as ``_fit_mu_kernel``: lane-varying zero inits
-    through a VMEM operand, int32 flag carries, arithmetic masking.
+    :func:`muscle_synergies_tpu.models.hals.fit_cd`'s rule: the first
+    iteration's violation is the reference level, convergence when
+    ``violation / violation_init <= tol`` (or a zero first violation).
     """
-    x = x_ref[:]
-    zero_i = zero_ref[:]
-    zero_f = zero_i.astype(x.dtype)
+    x = load_rows(x_ref, l)
 
     def cond(state):
-        _, _, n_iter, _, conv_i = state
-        return jnp.logical_and(
-            jnp.max(n_iter) < max_iter, jnp.min(conv_i) < 1
-        )
+        n_iter, conv = state[2], state[4]
+        return jnp.logical_and(jnp.max(n_iter) < max_iter, jnp.min(conv) < 1)
 
     def body(state):
-        w, h, n_iter, viol_init, conv_i = state
-        w_new, h_new, viol = _cd_iteration(
-            x, w, h, k=k, l=l, with_violation=True
-        )
-        keep = (conv_i != 0)[None]  # (1, 1, B)
-        w = jnp.where(keep, w, w_new)
-        h = jnp.where(keep, h, h_new)
-        n_iter = n_iter + (1 - conv_i)
-        first = jnp.logical_and(n_iter == 1, conv_i == 0)
-        viol_init = jnp.where(first, viol, viol_init)
+        w, h, n_iter, viol_init, _ = state
+        w, h, viol = _cd_iteration(x, w, h, with_violation=True)
+        n_iter = n_iter + 1
+        viol_init = jnp.where(n_iter == 1, viol, viol_init)
         safe = jnp.where(viol_init == 0, 1.0, viol_init)
-        newly = jnp.logical_or(viol_init == 0, viol / safe <= tol)
-        conv_i = jnp.maximum(conv_i, newly.astype(jnp.int32))
-        return w, h, n_iter, viol_init, conv_i
+        conv = jnp.logical_or(viol_init == 0, viol / safe <= tol)
+        return w, h, n_iter, viol_init, conv.astype(jnp.int32)
 
-    init = (w_ref[:], h_ref[:], zero_i, zero_f, zero_i)
-    w, h, n_iter, viol_init, conv_i = jax.lax.while_loop(cond, body, init)
-    w_out[:] = w
-    h_out[:] = h
+    zero_i = jnp.zeros(x[0].shape[:1], jnp.int32)
+    init = (load_rows(w_ref, k), load_h(h_ref, k, l), zero_i,
+            zero_i.astype(x[0].dtype), zero_i)
+    w, h, n_iter, viol_init, conv = jax.lax.while_loop(cond, body, init)
+    store_rows(w_out, w)
+    store_h(h_out, h)
     n_iter_out[:] = n_iter
-    viol_init_out[:] = viol_init
-    converged_out[:] = conv_i
+    viol_out[:] = viol_init
+    conv_out[:] = conv
 
 
 @functools.partial(
-    jax.jit, static_argnames=("max_iter", "tol", "block_b", "interpret")
+    jax.jit, static_argnames=("max_iter", "tol", "interpret")
 )
-def fit_cd_pallas(
-    xs: jnp.ndarray,
-    w0: jnp.ndarray,
-    h0: jnp.ndarray,
-    max_iter: int = 200,
-    tol: float = 1e-4,
-    block_b: int = 128,
-    interpret: bool = False,
-):
-    """CD-NMF to convergence on a ``(B, N, L)`` batch, fused in VMEM.
+def fit_cd_pallas(xs, w0, h0, max_iter: int = 200, tol: float = 1e-4,
+                  interpret: bool = False):
+    """CD-NMF to convergence on a ``(B, N, L)`` batch in one launch.
 
-    The solver counterpart of :func:`cd_iterations_pallas`: same
-    trials-on-lanes layout and VMEM residency, plus the exact stopping
-    semantics of :func:`muscle_synergies_tpu.models.hals.fit_cd`
-    (sklearn's projected-gradient rule, per trial, converged trials
-    frozen).
+    Same stopping semantics as
+    :func:`muscle_synergies_tpu.models.hals.fit_cd` (sklearn's
+    projected-gradient rule, per trial, each trial stopping on its own).
 
     Returns:
         ``(w, h, n_iter, violation_init, converged)`` with per-trial
@@ -189,110 +165,37 @@ def fit_cd_pallas(
     """
     b, n, l = xs.shape
     k = w0.shape[-1]
-    if b % block_b != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_b={block_b}")
-
-    xt = jnp.transpose(xs, (2, 1, 0))
-    wt = jnp.transpose(w0, (2, 1, 0))
-    ht = jnp.transpose(h0, (1, 2, 0))
-    zeros = jnp.zeros((1, b), jnp.int32)
-
+    xt, wt = pack(xs, w0)
     kernel = functools.partial(
         _fit_cd_kernel, max_iter=max_iter, tol=float(tol), k=k, l=l
     )
-    wt_out, ht_out, n_iter, viol_init, converged = pl.pallas_call(
-        kernel,
-        grid=(b // block_b,),
-        in_specs=[
-            pl.BlockSpec((l, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n, b), w0.dtype),
-            jax.ShapeDtypeStruct((k, l, b), h0.dtype),
-            jax.ShapeDtypeStruct((1, b), jnp.int32),
-            jax.ShapeDtypeStruct((1, b), xs.dtype),
-            jax.ShapeDtypeStruct((1, b), jnp.int32),
-        ],
-        interpret=interpret,
-    )(xt, wt, ht, zeros)
-
-    return (
-        jnp.transpose(wt_out, (2, 1, 0)),
-        jnp.transpose(ht_out, (2, 0, 1)),
-        n_iter[0],
-        viol_init[0],
-        converged[0].astype(bool),
+    wt, h, n_iter, viol_init, conv = call(
+        kernel, (xt, wt, h0),
+        [jax.ShapeDtypeStruct(wt.shape, w0.dtype),
+         jax.ShapeDtypeStruct(h0.shape, h0.dtype),
+         jax.ShapeDtypeStruct((b,), jnp.int32),
+         jax.ShapeDtypeStruct((b,), xs.dtype),
+         jax.ShapeDtypeStruct((b,), jnp.int32)],
+        name="cd_fit", interpret=interpret,
     )
+    return unpack(wt, n), h, n_iter, viol_init, conv.astype(bool)
 
 
-@functools.partial(jax.jit, static_argnames=("n_iters", "block_b", "interpret"))
-def cd_iterations_pallas(
-    xs: jnp.ndarray,
-    w: jnp.ndarray,
-    h: jnp.ndarray,
-    n_iters: int,
-    block_b: int = 128,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("n_iters", "interpret"))
+def cd_iterations_pallas(xs, w, h, n_iters: int, interpret: bool = False):
     """Run ``n_iters`` HALS/CD outer iterations on a ``(B, N, L)`` batch.
 
-    Matches ``fit_cd``'s update order (without the violation-based
-    stopping — this is the fixed-iteration throughput path).
+    ``fit_cd``'s update order without its stopping rule: the
+    fixed-iteration throughput path.
     """
-    b, n, l = xs.shape
+    _, n, l = xs.shape
     k = w.shape[-1]
-    if b % block_b != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_b={block_b}")
-
-    xt = jnp.transpose(xs, (2, 1, 0))  # (L, N, B)
-    wt = jnp.transpose(w, (2, 1, 0))  # (k, N, B)
-    ht = jnp.transpose(h, (1, 2, 0))  # (k, L, B)
-
+    xt, wt = pack(xs, w)
     kernel = functools.partial(_cd_kernel, n_iters=n_iters, k=k, l=l)
-    wt_out, ht_out = pl.pallas_call(
-        kernel,
-        grid=(b // block_b,),
-        in_specs=[
-            pl.BlockSpec((l, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n, b), w.dtype),
-            jax.ShapeDtypeStruct((k, l, b), h.dtype),
-        ],
-        interpret=interpret,
-    )(xt, wt, ht)
-
-    return (
-        jnp.transpose(wt_out, (2, 1, 0)),
-        jnp.transpose(ht_out, (2, 0, 1)),
+    wt, h = call(
+        kernel, (xt, wt, h),
+        [jax.ShapeDtypeStruct(wt.shape, w.dtype),
+         jax.ShapeDtypeStruct(h.shape, h.dtype)],
+        name="cd_iterations", interpret=interpret,
     )
+    return unpack(wt, n), h

@@ -1,31 +1,17 @@
-"""Fused batched MU-NMF iterations as a Pallas TPU kernel.
+"""Fused batched MU-NMF as a Pallas kernel through Triton.
 
-The XLA version of one MU iteration on a ``(B, 200, 8)`` trial batch is
-HBM-bound: every iteration re-reads X (~6.5 MB) and rewrites W, so the
-update runs at memory roofline (~13 MB of traffic per ~40 MFLOP).  This
-kernel removes that wall by keeping a block of trials *resident in
-VMEM* across all iterations:
+The XLA fit (:func:`muscle_synergies_tpu.models.batch.fit_mu_batch`) is
+a vmapped ``lax.while_loop``: every iteration issues several tiny
+batched products, and every chunk of ``check_every`` iterations sends
+its loop predicate back to the host.  Here one program solves one
+trial to convergence: X, W and H stay in registers, and the only
+memory traffic is the initial load and the final store
+(:mod:`._triton` describes the layout and padding).
 
-- layout: trials ride the 128-wide lane dimension.  Arrays enter as
-  ``X (L, N, B)``, ``W (k, N, B)``, ``H (k, L, B)`` so every
-  element-wise op and reduction vectorizes across the batch on the
-  VPU — the per-trial matmuls are tiny (k=4, L=8) and would waste the
-  128x128 MXU, so the kernel unrolls them as k*L lane-parallel
-  fused multiply-adds instead;
-- grid over trial blocks: each program loads its ~1.2 MB block once,
-  runs ``n_iters`` multiplicative updates in a ``fori_loop``, and
-  writes the factors back once.  HBM traffic per iteration is
-  amortized to ~zero;
-- numerics match :func:`muscle_synergies_tpu.models.mu.mu_update`
-  (same update order, same sklearn float32-eps denominator guard).
-
-FLOP audit (k=4, L=8, N=200): ``X Ht`` k*L*N FMAs + ``W`` denominators
-k*k*N FMAs + ``Wt W`` k(k+1)/2*N + ``Wt X`` k*L*N + the (B,)-vector
-Gram/H updates ≈ **38 KFLOP per trial per iteration**.  At the
-measured ~100k iter/s on a 1024-trial batch that is ~3.9 TFLOP/s —
-the v5e's f32 VPU peak (~3.85 TFLOP/s) — so the kernel runs at the
-VPU roofline; the MXU cannot help (a (200x8)@(8x4) per-trial matmul
-fills 0.2% of a 128x128 tile).
+Numerics follow :func:`muscle_synergies_tpu.models.mu.mu_update`
+(same update order, same float32-eps denominator guard) with exact
+float32 multiply-adds, and the stopping rule follows
+:func:`muscle_synergies_tpu.models.mu.fit_mu` per trial.
 """
 
 from __future__ import annotations
@@ -34,315 +20,203 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..mu import EPSILON
+from ._triton import (
+    add_all,
+    call,
+    col,
+    load_h,
+    load_rows,
+    pack,
+    rsum,
+    store_h,
+    store_rows,
+    unpack,
+)
 
 __all__ = ["mu_iterations_pallas", "fit_mu_pallas"]
 
 
-def _mu_step(x, w, h, k: int, l: int, inner_iter: int = 1):
-    """One lane-parallel MU update (W then H, sklearn's order).
+def _guard(den):
+    return jnp.where(den == 0, EPSILON, den)
 
-    ``inner_iter > 1`` repeats each factor's update reusing the fixed
-    factor's cross products (``X Ht`` / ``H Ht`` for W; ``Wt X`` /
-    ``Wt W`` for H) — the accelerated MU of Gillis & Glineur 2012,
-    matching :func:`muscle_synergies_tpu.models.mu.mu_update` exactly.
-    ``inner_iter=1`` is sklearn's plain update.
+
+def _mu_step(x, w, h, inner_iter: int):
+    """One MU update (W then H, sklearn's order) on list layouts.
+
+    ``x``: L rows ``(1, n)``; ``w``: k rows ``(1, n)``; ``h``: k x L
+    per-trial vectors ``(1,)``.  ``inner_iter > 1`` repeats each
+    factor's update reusing the fixed factor's cross products, as
+    :func:`muscle_synergies_tpu.models.mu.mu_update` does.
     """
-    # ---- W updates: X Ht and H Ht are constant while H is fixed ----
-    # Gram matrices are symmetric and the elementwise products commute,
-    # so the lower triangle is the upper one verbatim (bitwise equal).
+    k, l = len(w), len(x)
     hht = [[None] * k for _ in range(k)]
     for i in range(k):
         for j in range(i, k):
-            hht[i][j] = hht[j][i] = sum(
-                h[i, m] * h[j, m] for m in range(l)
-            )  # (B,)
-    num_rows = [
-        sum(h[i, m][None, :] * x[m] for m in range(l)) for i in range(k)
-    ]  # each (N, B)
+            hht[i][j] = hht[j][i] = add_all(
+                [h[i][m] * h[j][m] for m in range(l)]
+            )
+    num = [add_all([col(h[i][m]) * x[m] for m in range(l)]) for i in range(k)]
     for _ in range(inner_iter):
-        w_new = []
-        for i in range(k):
-            den = sum(hht[j][i][None, :] * w[j] for j in range(k))
-            den = jnp.where(den == 0, EPSILON, den)
-            w_new.append(w[i] * (num_rows[i] / den))
-        w = jnp.stack(w_new)
+        w = [
+            w[i] * (num[i] / _guard(add_all(
+                [col(hht[j][i]) * w[j] for j in range(k)]
+            )))
+            for i in range(k)
+        ]
 
-    # ---- H updates: Wt X and Wt W are constant while W is fixed ----
     wtw = [[None] * k for _ in range(k)]
     for i in range(k):
         for j in range(i, k):
-            wtw[i][j] = wtw[j][i] = jnp.sum(w[i] * w[j], axis=0)  # (B,)
-    wtx = [
-        [jnp.sum(w[i] * x[m], axis=0) for m in range(l)] for i in range(k)
-    ]  # each (B,)
+            wtw[i][j] = wtw[j][i] = rsum(w[i] * w[j])
+    wtx = [[rsum(w[i] * x[m]) for m in range(l)] for i in range(k)]
     for _ in range(inner_iter):
-        h_new = []
-        for i in range(k):
-            rows = []
-            for m in range(l):
-                den = sum(wtw[i][j] * h[j, m] for j in range(k))
-                den = jnp.where(den == 0, EPSILON, den)
-                rows.append(h[i, m] * (wtx[i][m] / den))
-            h_new.append(jnp.stack(rows))
-        h = jnp.stack(h_new)
+        h = [
+            [
+                h[i][m] * (wtx[i][m] / _guard(add_all(
+                    [wtw[i][j] * h[j][m] for j in range(k)]
+                )))
+                for m in range(l)
+            ]
+            for i in range(k)
+        ]
     return w, h
 
 
-def _lane_error(x, w, h, k: int, l: int):
-    """Per-trial Frobenius error across lanes, shape ``(1, B)``.
-
-    Kept 2-D throughout: Mosaic's vector layouts want the lane
-    dimension paired with a (here singleton) sublane dimension.
-    """
+def _error(x, w, h):
+    """Per-trial ``||X - WH||_F``, shape ``(1,)``."""
+    k = len(w)
     total = None
-    for m in range(l):
-        rec = sum(w[j] * h[j, m][None, :] for j in range(k))  # (N, B)
-        diff = x[m] - rec
-        part = jnp.sum(diff * diff, axis=0, keepdims=True)  # (1, B)
+    for m, xm in enumerate(x):
+        diff = xm - add_all([w[j] * col(h[j][m]) for j in range(k)])
+        part = rsum(diff * diff)
         total = part if total is None else total + part
     return jnp.sqrt(total)
 
 
-def _mu_kernel(
-    x_ref, w_ref, h_ref, w_out, h_out,
-    *, n_iters: int, k: int, l: int, inner_iter: int,
-):
-    x = x_ref[:]  # (L, N, Bblk)
+def _mu_kernel(x_ref, w_ref, h_ref, w_out, h_out, *, n_iters, k, l,
+               inner_iter):
+    x = load_rows(x_ref, l)
 
     def body(_, carry):
-        return _mu_step(x, *carry, k=k, l=l, inner_iter=inner_iter)
+        return _mu_step(x, *carry, inner_iter=inner_iter)
 
-    w, h = jax.lax.fori_loop(0, n_iters, body, (w_ref[:], h_ref[:]))
-    w_out[:] = w
-    h_out[:] = h
+    w, h = jax.lax.fori_loop(
+        0, n_iters, body, (load_rows(w_ref, k), load_h(h_ref, k, l))
+    )
+    store_rows(w_out, w)
+    store_h(h_out, h)
 
 
 def _fit_mu_kernel(
-    x_ref, w_ref, h_ref, zero_ref, w_out, h_out, n_iter_out, converged_out,
-    prev_err_out,
-    *, max_iter: int, tol: float, check_every: int, k: int, l: int,
-    inner_iter: int,
+    x_ref, w_ref, h_ref, w_out, h_out, n_iter_out, err_out,
+    conv_out, *, max_iter, tol, check_every, k, l, inner_iter,
 ):
-    """MU solve to convergence, entirely in VMEM.
+    """MU solve of one trial to convergence.
 
-    Replicates :func:`muscle_synergies_tpu.models.mu.fit_mu`'s stopping
-    semantics per lane (trial): chunks of ``check_every`` updates with
-    frozen converged lanes, Frobenius-improvement test at check points.
-
-    ``zero_ref`` is a ``(1, B)`` int32 zero block: while-loop carries
-    must start lane-varying (a constant init would pin Mosaic's carry
-    layout to replicated, which the loop body cannot produce), so the
-    zeros come in through memory.
+    :func:`muscle_synergies_tpu.models.mu.fit_mu`'s stopping rule:
+    chunks of ``check_every`` updates, the relative Frobenius
+    improvement tested at exact multiples of ``check_every``.
     """
-    x = x_ref[:]
-    w0 = w_ref[:]
-    h0 = h_ref[:]
-    # every per-trial scalar lives as a (1, B) row (2-D lane vectors)
-    err0 = _lane_error(x, w0, h0, k, l)
-    zero_i = zero_ref[:]
+    x = load_rows(x_ref, l)
+    w0, h0 = load_rows(w_ref, k), load_h(h_ref, k, l)
+    err0 = _error(x, w0, h0)
+    conv0 = jnp.zeros(err0.shape, jnp.int32)
 
-    # convergence flags carried as int32 0/1 (i1 vector carries do not
-    # legalize through Mosaic's loop lowering)
     def cond(state):
-        _, _, n_iter, _, conv_i = state
-        return jnp.logical_and(
-            jnp.max(n_iter) < max_iter, jnp.min(conv_i) < 1
-        )
+        n_iter, conv = state[2], state[4]
+        return jnp.logical_and(jnp.max(n_iter) < max_iter, jnp.min(conv) < 1)
 
     def chunk(state):
-        w, h, n_iter, prev_err, conv_i = state
+        w, h, n_iter, prev_err, conv = state
         steps = jnp.minimum(check_every, max_iter - jnp.max(n_iter))
 
         def body(_, carry):
-            wc, hc = carry
-            w_new, h_new = _mu_step(x, wc, hc, k=k, l=l, inner_iter=inner_iter)
-            keep = (conv_i != 0)[None]  # (1, 1, B)
-            return (
-                jnp.where(keep, wc, w_new),
-                jnp.where(keep, hc, h_new),
-            )
+            return _mu_step(x, *carry, inner_iter=inner_iter)
 
         w, h = jax.lax.fori_loop(0, steps, body, (w, h))
-        # arithmetic masking instead of an int select: Mosaic cannot
-        # relayout select_n between a replicated scalar add and the
-        # lane-vector carry
-        n_iter = n_iter + steps * (1 - conv_i)
+        n_iter = n_iter + steps
         if tol > 0:
-            err = _lane_error(x, w, h, k, l)
-            at_checkpoint = n_iter % check_every == 0
-            newly = jnp.logical_and(
-                (prev_err - err) / err0 < tol, at_checkpoint
-            )
-            new_conv = jnp.maximum(conv_i, newly.astype(jnp.int32))
-            # mask on the *pre-update* flags: a trial converging at this
-            # checkpoint still records this check's error (the XLA
-            # fit's MUState.previous_error semantics)
-            prev_err = jnp.where(conv_i != 0, prev_err, err)
-            conv_i = new_conv
-        # tol <= 0 disables the convergence check entirely (run to
-        # max_iter), matching the XLA fit_mu's static tol>0 branch.
-        return w, h, n_iter, prev_err, conv_i
+            err = _error(x, w, h)
+            conv = jnp.logical_and(
+                (prev_err - err) / err0 < tol, n_iter % check_every == 0
+            ).astype(jnp.int32)
+            # the converging check still records its error, as
+            # MUState.previous_error does
+            prev_err = err
+        return w, h, n_iter, prev_err, conv
 
-    init = (w0, h0, zero_i, err0, zero_i)
-    w, h, n_iter, prev_err, conv_i = jax.lax.while_loop(cond, chunk, init)
-    w_out[:] = w
-    h_out[:] = h
+    init = (w0, h0, jnp.zeros_like(conv0), err0, conv0)
+    w, h, n_iter, prev_err, conv = jax.lax.while_loop(cond, chunk, init)
+    store_rows(w_out, w)
+    store_h(h_out, h)
     n_iter_out[:] = n_iter
-    converged_out[:] = conv_i
-    # the error at the last convergence check — the same quantity the
-    # XLA fit carries in MUState.previous_error
-    prev_err_out[:] = prev_err
+    err_out[:] = prev_err
+    conv_out[:] = conv
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("n_iters", "block_b", "interpret", "inner_iter"),
+    jax.jit, static_argnames=("n_iters", "interpret", "inner_iter")
 )
-def mu_iterations_pallas(
-    xs: jnp.ndarray,
-    w: jnp.ndarray,
-    h: jnp.ndarray,
-    n_iters: int,
-    block_b: int = 128,
-    interpret: bool = False,
-    inner_iter: int = 1,
-):
+def mu_iterations_pallas(xs, w, h, n_iters: int, interpret: bool = False,
+                         inner_iter: int = 1):
     """Run ``n_iters`` MU iterations on a ``(B, N, L)`` batch.
 
     Drop-in for
-    :func:`muscle_synergies_tpu.models.batch.mu_iterations_batch`; the
-    batch size must divide by ``block_b`` (pad the trial axis if not).
+    :func:`muscle_synergies_tpu.models.batch.mu_iterations_batch`; any
+    batch size and trial length (samples are padded internally).
     """
-    b, n, l = xs.shape
+    _, n, l = xs.shape
     k = w.shape[-1]
-    if b % block_b != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_b={block_b}")
-
-    # one-time layout change: trials onto the minor (lane) dimension
-    xt = jnp.transpose(xs, (2, 1, 0))  # (L, N, B)
-    wt = jnp.transpose(w, (2, 1, 0))  # (k, N, B)
-    ht = jnp.transpose(h, (1, 2, 0))  # (k, L, B)
-
-    grid = (b // block_b,)
+    xt, wt = pack(xs, w)
     kernel = functools.partial(
         _mu_kernel, n_iters=n_iters, k=k, l=l, inner_iter=inner_iter
     )
-    wt_out, ht_out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((l, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n, b), w.dtype),
-            jax.ShapeDtypeStruct((k, l, b), h.dtype),
-        ],
-        interpret=interpret,
-    )(xt, wt, ht)
-
-    w_out = jnp.transpose(wt_out, (2, 1, 0))
-    h_out = jnp.transpose(ht_out, (2, 0, 1))
-    return w_out, h_out
+    wt, h = call(
+        kernel, (xt, wt, h),
+        [jax.ShapeDtypeStruct(wt.shape, w.dtype),
+         jax.ShapeDtypeStruct(h.shape, h.dtype)],
+        name="mu_iterations", interpret=interpret,
+    )
+    return unpack(wt, n), h
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "max_iter", "tol", "check_every", "block_b", "interpret", "inner_iter",
+        "max_iter", "tol", "check_every", "interpret", "inner_iter",
     ),
 )
-def fit_mu_pallas(
-    xs: jnp.ndarray,
-    w0: jnp.ndarray,
-    h0: jnp.ndarray,
-    max_iter: int = 200,
-    tol: float = 1e-4,
-    check_every: int = 10,
-    block_b: int = 128,
-    interpret: bool = False,
-    inner_iter: int = 1,
-):
-    """MU-NMF to convergence on a ``(B, N, L)`` batch, fused in VMEM.
+def fit_mu_pallas(xs, w0, h0, max_iter: int = 200, tol: float = 1e-4,
+                  check_every: int = 10, interpret: bool = False,
+                  inner_iter: int = 1):
+    """MU-NMF to convergence on a ``(B, N, L)`` batch in one launch.
 
-    The solver counterpart of :func:`mu_iterations_pallas`: same
-    trials-on-lanes layout and VMEM residency, plus the exact stopping
-    semantics of :func:`muscle_synergies_tpu.models.mu.fit_mu`
-    (sklearn's rule, per trial, with converged trials frozen).
+    Same stopping semantics as
+    :func:`muscle_synergies_tpu.models.mu.fit_mu` (sklearn's rule, per
+    trial, each trial stopping on its own).
 
     Returns:
         ``(w, h, n_iter, prev_err, converged)`` with per-trial ``(B,)``
         iteration counts, the Frobenius error at each trial's last
-        convergence check (the XLA fit's ``MUState.previous_error``
-        semantics), and convergence flags.
+        convergence check (``MUState.previous_error``) and convergence
+        flags.
     """
     b, n, l = xs.shape
     k = w0.shape[-1]
-    if b % block_b != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_b={block_b}")
-
-    xt = jnp.transpose(xs, (2, 1, 0))
-    wt = jnp.transpose(w0, (2, 1, 0))
-    ht = jnp.transpose(h0, (1, 2, 0))
-    zeros = jnp.zeros((1, b), jnp.int32)
-
+    xt, wt = pack(xs, w0)
     kernel = functools.partial(
         _fit_mu_kernel, max_iter=max_iter, tol=float(tol),
         check_every=check_every, k=k, l=l, inner_iter=inner_iter,
     )
-    wt_out, ht_out, n_iter, converged, prev_err = pl.pallas_call(
-        kernel,
-        grid=(b // block_b,),
-        in_specs=[
-            pl.BlockSpec((l, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((k, n, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, l, block_b), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((k, n, b), w0.dtype),
-            jax.ShapeDtypeStruct((k, l, b), h0.dtype),
-            jax.ShapeDtypeStruct((1, b), jnp.int32),
-            jax.ShapeDtypeStruct((1, b), jnp.int32),
-            jax.ShapeDtypeStruct((1, b), xs.dtype),
-        ],
-        interpret=interpret,
-    )(xt, wt, ht, zeros)
-
-    return (
-        jnp.transpose(wt_out, (2, 1, 0)),
-        jnp.transpose(ht_out, (2, 0, 1)),
-        n_iter[0],
-        prev_err[0],
-        converged[0].astype(bool),
+    wt, h, n_iter, prev_err, conv = call(
+        kernel, (xt, wt, h0),
+        [jax.ShapeDtypeStruct(wt.shape, w0.dtype),
+         jax.ShapeDtypeStruct(h0.shape, h0.dtype),
+         jax.ShapeDtypeStruct((b,), jnp.int32),
+         jax.ShapeDtypeStruct((b,), xs.dtype),
+         jax.ShapeDtypeStruct((b,), jnp.int32)],
+        name="mu_fit", interpret=interpret,
     )
+    return unpack(wt, n), h, n_iter, prev_err, conv.astype(bool)

@@ -16,8 +16,8 @@ per-trial NMF, the modules are estimated from the WHOLE dataset at
 once and single small coefficient matrices describe each trial — the
 representation Delis et al. use for single-trial decoding.
 
-TPU shape: every update below is a batched matmul / einsum over the
-trial axis (MXU work, no scalar loops), the full fit is one
+Device shape: every update below is a batched matmul / einsum over the
+trial axis (no scalar loops), the full fit is one
 ``lax.while_loop`` with the package's sklearn-style stopping, and the
 per-trial coefficient update is embarrassingly data-parallel while the
 module updates reduce over trials — on a mesh those two reductions
@@ -34,13 +34,13 @@ factor's subproblem, ``EPSILON``-guarded like every solver here):
 Update order is A, then W, then S (each uses the freshest other
 factors), one documented choice pinned by the tests' numpy oracle.
 
-Precision: on TPU, XLA lowers f32 matmuls/einsums to bf16 MXU passes
-by default — chip-measured ~1.2e-2 max relative error vs a float64
-host oracle after 20 updates (``BENCH_NM3F.json``).  Every public
-entry point threads a ``precision`` argument (any
-``jax.lax.Precision`` spelling, e.g. ``"highest"`` for multi-pass
-f32 MXU arithmetic) through all contractions, including the stopping
-criterion's error reduction.  ``None`` keeps the fast XLA default.
+Precision: every public entry point threads a ``precision`` argument
+(any ``jax.lax.Precision`` spelling) through all contractions,
+including the stopping criterion's error reduction.  ``None`` runs
+them at full float32 precision (:func:`~muscle_synergies_tpu.models.mu.full_precision`):
+a GPU's default float32 product may round through TF32, which left an
+H100 fit 7.5e-3 from the float64 host fit, against 1.6e-6 at full
+precision.  ``"default"`` asks for the platform's fast default.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .mu import EPSILON
+from .._optional import is_pandas
+from .mu import EPSILON, full_precision
 
 __all__ = [
     "NM3FModel",
@@ -84,6 +85,7 @@ def nm3f_reconstruct(
     return jnp.einsum("tp,bpq,ql->btl", w, a, s, precision=precision)
 
 
+@full_precision
 def nm3f_update(
     xs: jnp.ndarray,
     w: jnp.ndarray,
@@ -144,6 +146,7 @@ class NM3FState(NamedTuple):
     converged: jnp.ndarray
 
 
+@full_precision
 def _nm3f_error(xs, w, a, s, precision=None):
     diff = xs - nm3f_reconstruct(w, a, s, precision=precision)
     return jnp.sqrt(jnp.sum(diff * diff))
@@ -176,9 +179,8 @@ def fit_nm3f(
     hashable — e.g. ``"highest"``) threads through the update
     contractions; see the module docstring.  The stopping criterion's
     error checks default to ``jax.lax.Precision.HIGHEST`` regardless
-    (a bf16-rounded statistic flips near-threshold stopping decisions;
-    chip-measured on the KL fits) — an explicit ``precision`` applies
-    to the checks too.
+    (a reduced-precision statistic flips near-threshold stopping
+    decisions) — an explicit ``precision`` applies to the checks too.
     """
     xs = jnp.asarray(xs)
     check_precision = (
@@ -464,50 +466,20 @@ def _fit_restarts_meshed(xs_np, inits, mesh, max_iter, tol, precision=None):
     )
 
 
-def find_space_by_time_synergies(
-    trials,
-    n_temporal: int,
-    n_spatial: int,
-    max_iter: int = 500,
-    tol: float = 1e-5,
-    n_inits: int = 4,
-    seed: int = 0,
-    mesh=None,
-    precision=None,
-) -> SpaceByTimeResult:
-    """Extract Delis-style space-by-time synergies from a trial stack.
+def _space_by_time(
+    trials, n_temporal, n_spatial, max_iter, tol, n_inits, seed, mesh,
+    precision,
+):
+    """Array core of :func:`find_space_by_time_synergies`.
 
-    The dataset-level companion to ``find_synergies`` (spatial-only)
-    and :func:`~muscle_synergies_tpu.models.cnmf.find_time_varying_synergies`
-    (temporal-extent-only): shared temporal AND spatial modules with a
-    small per-trial coefficient matrix each.  The ``n_inits`` random
-    restarts are vmapped into ONE device computation; the lowest-error
-    restart is returned with unit-norm modules.
-
-    Args:
-        trials: ``(B, T, L)`` nonnegative stack (e.g. the output of
-            :func:`muscle_synergies_tpu.dataset.preprocess_trials`), or
-            a sequence of equal-shape ``(T, L)`` DataFrames/arrays.
-        n_temporal / n_spatial: module counts ``P`` / ``Q``.
-        max_iter / tol: sklearn-style stopping (see :func:`fit_nm3f`).
-        n_inits: random restarts (batched into one computation).
-        seed: base seed; restart ``r`` uses ``seed + r``.
-        mesh: optional ``(data, time)`` mesh — each restart runs
-            through :func:`~muscle_synergies_tpu.parallel.sharded_fit_nm3f`
-            (trials and coefficients over ``data``, the shared time
-            base over ``time``); trial counts that don't divide the
-            data axis are exactly zero-padded, and a non-dividing time
-            axis warns and falls back to the local solver.
-        precision: matmul precision for every contraction (e.g.
-            ``"highest"`` for multi-pass f32 on the TPU MXU); see the
-            module docstring.
+    Returns ``(result, columns)``: the result carries numpy arrays in
+    place of the module DataFrames, and ``columns`` the input's column
+    labels (or ``None``).
     """
-    import pandas
-
     columns = None
     if not hasattr(trials, "ndim"):
         first = trials[0]
-        if isinstance(first, pandas.DataFrame):
+        if is_pandas(first):
             columns = list(first.columns)
         trials = np.stack([np.asarray(t) for t in trials])
     # keep the caller's float dtype (f32 stacks solve in f32 — the
@@ -572,18 +544,70 @@ def find_space_by_time_synergies(
         float(jnp.sum(tot2)), float(EPSILON)
     )
 
-    cols = columns if columns is not None else list(range(l))
-    return SpaceByTimeResult(
-        temporal_modules=pandas.DataFrame(
-            np.asarray(w),
-            columns=[f"temporal {i}" for i in range(n_temporal)],
-        ),
-        spatial_modules=pandas.DataFrame(np.asarray(s), columns=cols),
+    result = SpaceByTimeResult(
+        temporal_modules=np.asarray(w),
+        spatial_modules=np.asarray(s),
         coefficients=np.asarray(a),
         vaf=overall,
         vaf_per_trial=per_trial,
         n_iter=int(states.n_iter[best]),
         restart_errors=errors,
+    )
+    return result, columns
+
+
+def find_space_by_time_synergies(
+    trials,
+    n_temporal: int,
+    n_spatial: int,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+    n_inits: int = 4,
+    seed: int = 0,
+    mesh=None,
+    precision=None,
+) -> SpaceByTimeResult:
+    """Extract Delis-style space-by-time synergies from a trial stack.
+
+    The dataset-level companion to ``find_synergies`` (spatial-only)
+    and :func:`~muscle_synergies_tpu.models.cnmf.find_time_varying_synergies`
+    (temporal-extent-only): shared temporal AND spatial modules with a
+    small per-trial coefficient matrix each.  The ``n_inits`` random
+    restarts are vmapped into ONE device computation; the lowest-error
+    restart is returned with unit-norm modules.
+
+    Args:
+        trials: ``(B, T, L)`` nonnegative stack (e.g. the output of
+            :func:`muscle_synergies_tpu.dataset.preprocess_trials`), or
+            a sequence of equal-shape ``(T, L)`` DataFrames/arrays.
+        n_temporal / n_spatial: module counts ``P`` / ``Q``.
+        max_iter / tol: sklearn-style stopping (see :func:`fit_nm3f`).
+        n_inits: random restarts (batched into one computation).
+        seed: base seed; restart ``r`` uses ``seed + r``.
+        mesh: optional ``(data, time)`` mesh — each restart runs
+            through :func:`~muscle_synergies_tpu.parallel.sharded_fit_nm3f`
+            (trials and coefficients over ``data``, the shared time
+            base over ``time``); trial counts that don't divide the
+            data axis are exactly zero-padded, and a non-dividing time
+            axis warns and falls back to the local solver.
+        precision: matmul precision for every contraction (e.g.
+            ``"highest"`` for full float32 products); see the module
+            docstring.
+    """
+    res, columns = _space_by_time(
+        trials, n_temporal, n_spatial, max_iter, tol, n_inits, seed, mesh,
+        precision,
+    )
+    import pandas
+
+    n_muscles = res.spatial_modules.shape[1]
+    cols = columns if columns is not None else list(range(n_muscles))
+    return res._replace(
+        temporal_modules=pandas.DataFrame(
+            res.temporal_modules,
+            columns=[f"temporal {i}" for i in range(n_temporal)],
+        ),
+        spatial_modules=pandas.DataFrame(res.spatial_modules, columns=cols),
     )
 
 
@@ -631,8 +655,8 @@ class NM3FModel:
         self.precision = precision
 
     def _set_fitted(self, res) -> None:
-        self.temporal_modules_ = res.temporal_modules.to_numpy()
-        self.spatial_modules_ = res.spatial_modules.to_numpy()
+        self.temporal_modules_ = np.asarray(res.temporal_modules)
+        self.spatial_modules_ = np.asarray(res.spatial_modules)
         self.n_temporal_ = self.n_temporal
         self.n_spatial_ = self.n_spatial
         self.n_iter_ = int(res.n_iter)
@@ -646,10 +670,9 @@ class NM3FModel:
 
     def fit_transform(self, X) -> np.ndarray:
         """Fit the modules and return the ``(B, P, Q)`` coefficients."""
-        res = find_space_by_time_synergies(
-            X, self.n_temporal, self.n_spatial, max_iter=self.max_iter,
-            tol=self.tol, n_inits=self.n_inits, seed=self.random_state,
-            precision=self.precision,
+        res, _ = _space_by_time(
+            X, self.n_temporal, self.n_spatial, self.max_iter, self.tol,
+            self.n_inits, self.random_state, None, self.precision,
         )
         self._set_fitted(res)
         return res.coefficients
@@ -845,12 +868,10 @@ class SharedSpatialResult(NamedTuple):
 
 def _validate_trial_stack(trials):
     """Shared (B, T, L) stack validation; returns (xs, columns)."""
-    import pandas
-
     columns = None
     if not hasattr(trials, "ndim"):
         first = trials[0]
-        if isinstance(first, pandas.DataFrame):
+        if is_pandas(first):
             columns = list(first.columns)
         trials = np.stack([np.asarray(t) for t in trials])
     xs = np.asarray(trials)

@@ -39,7 +39,7 @@ from pathlib import Path
 from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
-import pandas
+from .._optional import pandas
 
 __all__ = [
     "MODEL_FORMAT",

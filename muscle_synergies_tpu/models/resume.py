@@ -178,7 +178,7 @@ def bootstrap_time_varying_synergies_checkpointed(
 ) -> TimeVaryingBootstrapResult:
     """:func:`~...models.stability.bootstrap_time_varying_synergies`
     with chunked resume (the convolutive family's stability job is the
-    slowest in the suite — see BENCH_FIT's cnmf row)."""
+    slowest of the stability jobs)."""
     x_np = np.asarray(x, dtype=float)
     n = x_np.shape[0]
     if block_len is None:

@@ -21,7 +21,7 @@ from typing import Mapping, Optional, Union
 
 import jax.numpy as jnp
 import numpy as np
-import pandas
+from .._optional import pandas
 
 from .hals import fit_cd
 from .init import initialize_nmf
@@ -86,7 +86,7 @@ def compute_regularization(
 
 
 class NMFModel:
-    """Non-negative matrix factorization ``X ~ W @ H`` on TPU.
+    """Non-negative matrix factorization ``X ~ W @ H`` on the accelerator.
 
     Drop-in for the surface of ``sklearn.decomposition.NMF`` that the
     reference relies on.  ``solver`` may be ``"cd"`` (cyclic coordinate
@@ -296,8 +296,8 @@ class NMFModel:
         # sklearn: reconstruction_err_ is the square-rooted
         # beta-divergence of the *fitted* loss (Frobenius norm at beta=2).
         # One-shot report, so evaluate at HIGHEST matmul precision: the
-        # Pallas fits produce f32-exact factors and a bf16-MXU-rounded
-        # error statement would throw that accuracy away on TPU.
+        # fits produce float32-exact factors and a reduced-precision
+        # error statement would throw that accuracy away on the device.
         import jax
 
         from .beta import beta_divergence
@@ -550,7 +550,7 @@ def _sweep_batched(
 ) -> SynergyRunResult:
     """Run a rank sweep as one zero-rank-padded batched device solve.
 
-    The TPU-native execution of the reference's sequential rank loop
+    The batched device execution of the reference's sequential rank loop
     (reference analysis.py:909-913): every rank's problem becomes one
     entry of a ``(R, N, L)`` batch with factors zero-padded to
     ``max(ranks)``; multiplicative updates and HALS both keep padded

@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .init import initialize_nmf
-from .mu import EPSILON, MUState
+from .mu import EPSILON, MUState, full_precision
 from .batch import _pad_rank
 
 __all__ = [
@@ -199,6 +199,7 @@ def bootstrap_synergies(
 # masked (weighted) MU and cross-validated rank selection
 # ---------------------------------------------------------------------------
 
+@full_precision
 def _masked_mu_update(x, mask, w, h):
     """Weighted multiplicative update (Frobenius objective on mask)."""
     mx = mask * x
@@ -574,6 +575,7 @@ def bootstrap_time_varying_synergies(
     )
 
 
+@full_precision
 def _masked_cnmf_update(x, mask, c, s):
     """Weighted convolutive MU: every projection sees ``mask * (·)``.
 
@@ -870,6 +872,7 @@ def bootstrap_space_by_time(
     )
 
 
+@full_precision
 def _masked_nm3f_update(xs, mask, w, a, s, update_w=True, update_s=True):
     """Weighted trilinear MU: every projection of X / X̂ sees the mask.
 

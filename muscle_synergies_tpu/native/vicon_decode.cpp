@@ -50,7 +50,7 @@ inline bool is_content(char c) {
 inline uint64_t load8(const char* p) {
     uint64_t v;
     std::memcpy(&v, p, sizeof(v));
-    return v;  // little-endian assumed (x86/ARM; TPU hosts are x86)
+    return v;  // little-endian assumed (x86/ARM hosts)
 }
 
 inline bool all_digits8(uint64_t chunk) {

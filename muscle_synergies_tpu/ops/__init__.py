@@ -18,7 +18,6 @@ from .batched import (
     time_normalize_batch,
     zero_center_batch,
 )
-from .filter_pallas import cascade_pallas, sosfiltfilt_pallas
 from .filters import default_padlen, sos_design, sosfilt, sosfilt_zi, sosfiltfilt
 from .kinematics import (
     cop_path_length,
@@ -45,8 +44,6 @@ __all__ = [
     "sosfilt",
     "sosfilt_zi",
     "sosfiltfilt",
-    "sosfiltfilt_pallas",
-    "cascade_pallas",
     "default_padlen",
     "finite_difference",
     "marker_velocity",

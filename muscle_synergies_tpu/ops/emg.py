@@ -3,7 +3,7 @@
 Array-level core of the analysis layer: every function takes a
 ``(num_samples, num_channels)`` block (time major), is jit-friendly and
 vmaps over leading trial axes, so whole multi-trial datasets preprocess
-in one fused XLA computation on TPU.
+in one fused XLA computation on the device.
 
 Capability parity with the reference analysis functions
 (reference: src/muscle_synergies/analysis.py):
@@ -144,9 +144,9 @@ def _df_add(x, y):
 def _moving_rms_jit(x, window):
     # Box-kernel "same" convolution as a cumulative-sum difference:
     # O(N) instead of O(N * window), and it sidesteps XLA's direct
-    # convolution lowering, which degenerates for 1000-tap kernels on
-    # TPU.  Window placement matches np.convolve(sq, ones(w)/w, "same")
-    # exactly: output i averages sq[i - w//2 : i + (w-1)//2 + 1],
+    # convolution lowering of 1000-tap kernels.  Window placement
+    # matches np.convolve(sq, ones(w)/w, "same") exactly: output i
+    # averages sq[i - w//2 : i + (w-1)//2 + 1],
     # zero-padded at the edges (the reference's edge behavior,
     # reference analysis.py:474-491).
     #

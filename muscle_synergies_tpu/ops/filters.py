@@ -1,4 +1,4 @@
-"""IIR digital filtering as parallel scans on TPU.
+"""IIR digital filtering as parallel scans.
 
 Capability parity with the reference ``digital_filter``
 (reference: src/muscle_synergies/analysis.py:314-432), which delegates
@@ -15,8 +15,8 @@ linear recurrence on a 2-vector of filter states::
 
 Affine maps compose associatively, so the whole recurrence is a
 parallel prefix scan over ``(A, B x[n])`` pairs — O(N log N) work with
-large fused element-wise blocks instead of an O(N) sequential loop.
-This keeps the VPU busy on long captures (124k+ samples) and vmaps
+large fused element-wise blocks instead of an O(N) sequential loop,
+which XLA parallelizes across long captures (124k+ samples); it vmaps
 cleanly over channels and trials.
 
 Zero-phase (``filtfilt``) semantics replicate scipy's defaults exactly:
@@ -266,7 +266,8 @@ def _section_scan(x: jnp.ndarray, coeffs: jnp.ndarray, zi: jnp.ndarray):
     """
     n, c = x.shape
     if n >= _BLOCKED_SCAN_MIN_SAMPLES:
-        # pick chunks so chunk*channels fills the 128-wide lanes
+        # enough chunks that chunks x channels gives >= 128 parallel
+        # rows, at most 256
         n_chunks = max(1, min(256, -(-128 // c) * 8))
         if n // n_chunks >= 64:
             return _section_scan_blocked(x, coeffs, zi, n_chunks)
@@ -371,8 +372,8 @@ def _resolve_padding(
 ) -> int:
     """Validate ``padtype`` and resolve ``padlen`` (scipy semantics).
 
-    Shared by the scan and Pallas ``sosfiltfilt`` entry points so the
-    two cannot drift.
+    Shared by :func:`sosfiltfilt` and the sharded filtfilt so the two
+    cannot drift.
     """
     if padtype not in ("odd", "even", "constant", None):
         raise ValueError(
@@ -396,7 +397,6 @@ def sosfiltfilt(
     x: jnp.ndarray,
     padtype: Optional[str] = "odd",
     padlen: Optional[int] = None,
-    impl: str = "auto",
 ) -> jnp.ndarray:
     """Zero-phase forward-backward filtering (scipy ``sosfiltfilt``).
 
@@ -413,27 +413,10 @@ def sosfiltfilt(
         padtype: ``"odd"`` (default), ``"even"``, ``"constant"`` or
             ``None``.
         padlen: edge extension length; defaults to scipy's formula.
-        impl: ``"auto"`` (fused Pallas VMEM kernel on TPU when the
-            problem fits, blocked associative scan otherwise),
-            ``"scan"``, or ``"pallas"``.
     """
     x2, squeeze = _as_2d(x)
     sos_np = _normalize_sos(sos)
-    if impl not in ("auto", "scan", "pallas"):
-        raise ValueError(
-            f"impl must be 'auto', 'scan' or 'pallas', got {impl!r}"
-        )
     padlen = _resolve_padding(sos_np, x2.shape[0], padtype, padlen)
-
-    if impl != "scan":
-        from .filter_pallas import pallas_eligible, sosfiltfilt_pallas
-
-        if impl == "pallas" or pallas_eligible(x2, padlen):
-            y = sosfiltfilt_pallas(
-                sos_np, x2, padtype=padtype, padlen=padlen
-            )
-            return y[:, 0] if squeeze else y
-
     zi_unit = sosfilt_zi(sos_np)  # (n_sections, 2)
 
     y = _sosfiltfilt_jit(

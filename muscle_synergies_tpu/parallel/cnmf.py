@@ -36,7 +36,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.cnmf import CNMFState
-from ..models.mu import EPSILON
+from ..models.mu import EPSILON, full_precision
 from .collectives import axis_sum, edge_shift, time_sum
 from .nmf import DATA_AXIS, TIME_AXIS, _convergence_driver
 from .mesh import MODEL_AXIS
@@ -58,6 +58,7 @@ def _lag_stack_sharded(c, n_lags: int, axis_name: str):
     return jnp.stack([ext[halo - d : halo - d + t_loc] for d in range(n_lags)])
 
 
+@full_precision
 def _local_cnmf_step(x, c, s, axis_name: str, n_lags: int,
                      precision=None):
     """One S-then-C multiplicative update on a single trial's shards.
@@ -189,6 +190,7 @@ def sharded_fit_cnmf(
     return fit(xs, c0, s0)
 
 
+@full_precision
 def _local_cnmf_step_tp(x, c, s, axis_name: str, n_lags: int,
                         precision=None):
     """One convolutive update on a single trial's CHANNEL shards.

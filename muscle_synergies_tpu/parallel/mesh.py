@@ -1,21 +1,22 @@
 """Device-mesh construction and sharding helpers.
 
-The framework scales over TPU slices through ``jax.sharding``: a mesh
-with a ``"data"`` axis (trials/subjects) and a ``"time"`` axis (the
-long EMG sample dimension — the sequence-parallel axis).  The reference
+The framework scales over GPUs through ``jax.sharding``: a mesh with a
+``"data"`` axis (trials/subjects) and a ``"time"`` axis (the long EMG
+sample dimension — the sequence-parallel axis).  The reference
 has no distributed layer at all (SURVEY §2.5); every collective used by
 the solvers goes through :mod:`muscle_synergies_tpu.parallel` so the
 communication pattern is named, testable on a virtual CPU mesh, and
 swappable.
 
-Multi-host scaling (several processes, each owning a subset of chips —
-one TPU slice per process, or several slices joined over DCN) is
-entered through :func:`init_distributed`; after it returns,
-``jax.devices()`` spans every process and :func:`make_mesh` lays the
-global device set out as usual.  Mesh axes that cross slice boundaries
-ride DCN; axes within a slice ride ICI, so put the heavy (``time``)
-collectives on the fast inner axis and the embarrassingly-parallel
-``data`` axis across slices.
+The cards of one host are joined all to all by NVLink, so every pair
+of devices talks at the same rate and the mesh shape follows the
+algorithm alone; XLA hands the collectives to NCCL.  Multi-host scaling
+(several processes, each owning the cards of its host) is entered
+through :func:`init_distributed`; after it returns, ``jax.devices()``
+spans every process and :func:`make_mesh` lays the global device set
+out as usual.  Links between hosts are slower than NVLink, so keep the
+heavy (``time``) collectives within a host and lay the
+embarrassingly-parallel ``data`` axis across hosts.
 """
 
 from __future__ import annotations
@@ -47,18 +48,19 @@ def init_distributed(
     process_id: Optional[int] = None,
     **kwargs,
 ) -> int:
-    """Join this process to a multi-host JAX job (DCN / multi-slice).
+    """Join this process to a multi-host JAX job.
 
     Thin, idempotent wrapper over ``jax.distributed.initialize``: call
     once per process before any device query; afterwards
-    ``jax.devices()`` returns the *global* device list (all hosts /
-    slices) and :func:`make_mesh` builds meshes spanning them — the
-    mesh axes that cross hosts communicate over DCN, intra-slice axes
-    over ICI (SURVEY §5, distributed-communication-backend row).
+    ``jax.devices()`` returns the *global* device list (all hosts) and
+    :func:`make_mesh` builds meshes spanning them — the mesh axes that
+    cross hosts communicate over the host network, the axes within a
+    host over NVLink (SURVEY §5, distributed-communication-backend
+    row).
 
     All arguments have the ``jax.distributed.initialize`` semantics
     and, like it, fall back to auto-detection from the cluster
-    environment when omitted (TPU pod metadata, SLURM, Open MPI).  In a
+    environment when omitted (SLURM, Open MPI).  In a
     plain single-process environment — nothing auto-detectable and no
     coordinator given — this is a no-op, so library code can call it
     unconditionally; repeated calls are no-ops as well.
@@ -120,8 +122,7 @@ def init_distributed(
 def _cluster_env_configured() -> bool:
     """True when the environment advertises a *multi-process* cluster.
 
-    Single-worker values (one TPU worker hostname, one-task SLURM/MPI
-    jobs) do not count: only evidence of >1 process should turn a
+    Single-worker values (one-task SLURM/MPI jobs) do not count: only evidence of >1 process should turn a
     late ``init_distributed()`` into a hard error.
     """
     import os
@@ -131,11 +132,8 @@ def _cluster_env_configured() -> bool:
         for var in (
             "JAX_COORDINATOR_ADDRESS",
             "COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",
         )
     ):
-        return True
-    if "," in os.environ.get("TPU_WORKER_HOSTNAMES", ""):
         return True
     for var in ("SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"):
         val = os.environ.get(var, "")

@@ -37,7 +37,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..models.mu import EPSILON
+from ..models.mu import EPSILON, full_precision
 from ..models.nm3f import NM3FState
 from .collectives import axis_sum
 from .nmf import DATA_AXIS
@@ -46,6 +46,7 @@ from .mesh import TIME_AXIS
 __all__ = ["sharded_fit_nm3f"]
 
 
+@full_precision
 def _local_nm3f_step(
     xb, w, ab, s, data_axis: str, time_axis: str, precision=None
 ):

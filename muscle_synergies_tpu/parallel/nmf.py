@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..models.mu import EPSILON, MUState
+from ..models.mu import EPSILON, MUState, full_precision
 from .collectives import axis_sum, mark_varying, time_sum
 from .mesh import DATA_AXIS, MODEL_AXIS, TIME_AXIS
 
@@ -42,6 +42,7 @@ __all__ = [
 ]
 
 
+@full_precision
 def _local_mu_step(
     x, w, h, axis_name: str,
     l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
@@ -93,9 +94,9 @@ def _local_error(x, w, h, axis_name: str):
     """Per-trial Frobenius error with the sum-of-squares psum'd.
 
     The reconstruction runs at ``Precision.HIGHEST``: this is a
-    stopping statistic, and the TPU default's bf16 MXU rounding flips
-    near-threshold relative-improvement decisions (chip-measured on
-    the local fits; same discipline as ``models.mu.fit_mu``).
+    stopping statistic, and a reduced-precision default product flips
+    near-threshold relative-improvement decisions (same discipline as
+    ``models.mu.fit_mu``).
     """
     diff = x - jnp.matmul(w, h, precision=jax.lax.Precision.HIGHEST)
     sq = time_sum(jnp.sum(diff * diff, axis=(-1, -2)), axis_name)
@@ -265,6 +266,7 @@ def sharded_fit_mu(
     return fit(x, w0, h0)
 
 
+@full_precision
 def _local_beta_step(
     x, w, h, axis_name: str, beta: float = 1.0,
     l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
@@ -471,6 +473,7 @@ def sharded_fit_kl(
     )
 
 
+@full_precision
 def _local_mu_step_tp(
     x, w, h, axis_name: str,
     l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
@@ -588,6 +591,7 @@ def sharded_fit_mu_tp(
     return fit(x, w0, h0)
 
 
+@full_precision
 def _local_cd_pass_w(
     x, w, h, axis_name: str, l1_reg: float = 0.0, l2_reg: float = 0.0
 ):
@@ -622,6 +626,7 @@ def _local_cd_pass_w(
     return w, time_sum(violation, axis_name)
 
 
+@full_precision
 def _local_cd_pass_h(
     x, w, h, axis_name: str, l1_reg: float = 0.0, l2_reg: float = 0.0
 ):

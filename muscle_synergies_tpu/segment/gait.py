@@ -30,7 +30,7 @@ from enum import Enum, auto
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import pandas as pd
+from .._optional import pandas as pd
 
 from ..data import ViconNexusData
 from ..frames import FrameSubfr

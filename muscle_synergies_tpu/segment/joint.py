@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import pandas as pd
+from .._optional import pandas as pd
 
 from ..data import ViconNexusData
 from ..ops.kinematics import cop_path_length, grf_impulse

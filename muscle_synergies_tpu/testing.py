@@ -16,9 +16,10 @@ swap the anchors (TODO.md tracks it).
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
+from ._optional import pandas as pd
 
 __all__ = [
+    "gait_emg_array",
     "synthesize_gait_emg",
     "write_synthetic_capture",
     "write_reference_fulldata_twin",
@@ -37,14 +38,14 @@ def _smooth_nonneg(noise: np.ndarray, sigma: float) -> np.ndarray:
     return np.maximum(gaussian_filter1d(noise, sigma, axis=0), 0.0)
 
 
-def synthesize_gait_emg(
+def gait_emg_array(
     n_samples: int = 20_000,
     sampling_frequency: float = 2000.0,
     unique_weight: float = 0.66,
     noise: float = 0.02,
     stride_period: float = 1.1,
     seed: int = 12345,
-) -> pd.DataFrame:
+) -> np.ndarray:
     """Raw 8-channel gait-like surface EMG with two shared synergies.
 
     Construction: two raised-cosine activation patterns phase-shifted
@@ -62,7 +63,9 @@ def synthesize_gait_emg(
     matching the reference notebook's 0.956665 / 0.975424 regime.
 
     Returns:
-        ``(n_samples, 8)`` DataFrame with the tutorial's muscle labels.
+        ``(n_samples, 8)`` float64 array, channels in
+        :data:`GAIT_MUSCLES` order (numpy only; see
+        :func:`synthesize_gait_emg` for the labelled DataFrame).
     """
     rng = np.random.default_rng(seed)
     t = np.arange(n_samples) / sampling_frequency
@@ -90,8 +93,24 @@ def synthesize_gait_emg(
     envelope = envelope + unique_weight * idiosyncratic
 
     carrier = rng.standard_normal((n_samples, len(GAIT_MUSCLES)))
-    raw = envelope * carrier + noise * rng.standard_normal(
+    return envelope * carrier + noise * rng.standard_normal(
         (n_samples, len(GAIT_MUSCLES))
+    )
+
+
+def synthesize_gait_emg(
+    n_samples: int = 20_000,
+    sampling_frequency: float = 2000.0,
+    unique_weight: float = 0.66,
+    noise: float = 0.02,
+    stride_period: float = 1.1,
+    seed: int = 12345,
+) -> pd.DataFrame:
+    """:func:`gait_emg_array` as a DataFrame with the tutorial's muscle
+    labels (needs pandas)."""
+    raw = gait_emg_array(
+        n_samples, sampling_frequency, unique_weight, noise, stride_period,
+        seed,
     )
     return pd.DataFrame(raw, columns=list(GAIT_MUSCLES))
 
@@ -115,10 +134,12 @@ def _write_section(fh, title, freq, device_headers, col_names, units, body,
     fh.write(",".join(headers) + "\n")
     fh.write("Frame,Sub Frame," + ",".join(col_names) + "\n")
     fh.write(",," + ",".join(units) + "\n")
-    df = pd.DataFrame(body)
-    df.insert(0, "sub", subframes)
-    df.insert(0, "fr", frames)
-    df.to_csv(fh, header=False, index=False)
+    # 10 significant digits hold every value the writers produce
+    # (rounded to at most 6 decimals, magnitudes below 1e5) exactly;
+    # one %-format over the whole block runs in C, not a row at a time
+    rows = np.column_stack([frames, subframes, body])
+    line = ",".join(["%d", "%d"] + ["%.10g"] * (rows.shape[1] - 2)) + "\n"
+    fh.write((line * rows.shape[0]) % tuple(rows.ravel().tolist()))
 
 
 def _forces_emg_headers(plate_name, emg_name="EMG2000 - Voltage"):
@@ -177,9 +198,9 @@ def write_synthetic_capture(
     n_frames = n // subframes
 
     rng = np.random.default_rng(seed)
-    emg = synthesize_gait_emg(
+    emg = gait_emg_array(
         n_samples=n, sampling_frequency=freq_forces, seed=seed
-    ).to_numpy()
+    )
 
     def plate_block(fz):
         block = np.round(rng.standard_normal((n, 9)) * 5.0, 5)

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
-import pandas
+from .._optional import pandas
 
 __all__ = [
     "SweepCheckpoint",

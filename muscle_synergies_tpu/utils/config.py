@@ -62,14 +62,9 @@ class PipelineConfig:
         solver / max_iter / tol: NMF solver settings.
         solver_impl: batched-solver implementation for dataset-scale
             runs — ``"xla"`` (any backend), ``"pallas"`` (the fused
-            VMEM kernels, TPU only; every solver and beta) or
-            ``"auto"`` (the default: pallas on TPU when the fit grid
-            packs lanes reasonably, xla elsewhere — on a v5e the
-            fused fits are up to ~7.7x faster (CD; 1.8-2.6x for
-            MU/KL/IS per BENCH_FIT.json) AND their f32 stopping
-            statistics track the float64 reference to gap 0 where the
-            XLA path's bf16 MXU rounding drifts it tens of
-            checkpoints; see BENCH_CHECK.json / BENCH_FIT.json).
+            Triton kernels, GPU only) or ``"auto"`` (the default: the
+            kernel on a GPU where the fit has one, xla elsewhere; see
+            :func:`muscle_synergies_tpu.utils.platform.resolve_impl`).
         inner_iter: accelerated-MU inner repetitions per outer
             iteration (1 = sklearn-exact plain MU).
     """

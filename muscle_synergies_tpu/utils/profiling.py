@@ -4,7 +4,7 @@ The reference has no profiling or observability at all (SURVEY §5).
 This module provides:
 
 - :class:`Timer` / :func:`annotate`: wall-clock scopes that also emit
-  ``jax.profiler`` trace annotations so they show up on TPU traces;
+  ``jax.profiler`` trace annotations so they show up on device traces;
 - :func:`solver_report`: structured telemetry from solver states
   (iterations, final loss, convergence flags) — the batched analog of
   sklearn's ``n_iter_`` / ``reconstruction_err_``;

@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import pandas
+from ._optional import pandas
 
 from .analysis import fft_spectrum
 

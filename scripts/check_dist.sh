@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Distribution smoke test (the TPU-era analog of the reference's
+# Distribution smoke test (the analog of the reference's
 # tests/test-dist.bash): build a wheel offline and check that both
 # packages — the framework and the drop-in compat facade — plus the
 # native decoder source ship inside it, then import from the wheel.

@@ -523,7 +523,7 @@ def test_export_transform_cli(capture_csv, tmp_path):
     from muscle_synergies_tpu.models import load_transform
 
     fn = load_transform(tmp_path / "t.hlo")
-    assert fn.exported.platforms == ("cpu", "tpu")
+    assert fn.exported.platforms == ("cpu", "cuda")
     x = np.abs(RNG_EXPORT.normal(size=(37, 8))).astype("float32")
     assert fn(x).shape == (37, 2)  # symbolic rows: any length serves
 

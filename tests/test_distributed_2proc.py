@@ -1,11 +1,11 @@
 """Two-process ``init_distributed`` rendezvous smoke test.
 
-The DCN entry point (`muscle_synergies_tpu.parallel.mesh.init_distributed`,
+The multi-process entry point (`muscle_synergies_tpu.parallel.mesh.init_distributed`,
 SURVEY §5 distributed-communication-backend row) is exercised elsewhere
 only in degenerate single-process form.  Here two real subprocesses
 rendezvous through a localhost coordinator on the CPU backend, assert
 the global process/device view, and run one tiny cross-process
-reduction — the actual multi-host code path, no TPU pod required.
+reduction — the actual multi-host code path, no cluster required.
 """
 
 import os
@@ -59,7 +59,7 @@ print(f"WORKER_{pid}_OK")
 # Worker for the end-to-end leg: each process provisions 4 virtual CPU
 # devices, the two join into one 8-device global view, and the sharded
 # solvers run on process-spanning arrays with collectives that really
-# cross the process boundary — the DCN-shaped code path
+# cross the process boundary — the cross-process code path
 # (`parallel/mesh.py` promises it; VERDICT r3 weak #1 demanded the
 # evidence).  Meshes are laid out so the `time` axis pairs devices from
 # DIFFERENT processes (interleaved device order), so every Gram psum /
@@ -112,7 +112,7 @@ def shard_parity(global_out, reference, exact=False, rtol=1e-9):
 # ---- leg 1: sharded MU fit; every time-axis psum crosses processes ----
 # device order interleaves the two processes along the time axis: each
 # (data-row, time-pair) holds one device from process 0 and one from
-# process 1, so the Gram reductions inside the fit are DCN-shaped.
+# process 1, so the Gram reductions inside the fit cross processes.
 by_proc = [[d for d in jax.devices() if d.process_index == p] for p in (0, 1)]
 interleaved = [d for pair in zip(*by_proc) for d in pair]
 mesh = make_mesh((4, 2), devices=interleaved)

@@ -73,7 +73,7 @@ class TestNMFExport:
         blob = export_transform(model, x.shape, dtype=jnp.float64, path=p)
         assert p.read_bytes() == blob
         fn = load_transform(p)
-        assert fn.exported.platforms == ("cpu", "tpu")
+        assert fn.exported.platforms == ("cpu", "cuda")
         np.testing.assert_allclose(
             fn(x.to_numpy()), model.transform(x), rtol=1e-10, atol=1e-12
         )
